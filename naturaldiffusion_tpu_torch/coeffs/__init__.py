@@ -1,0 +1,6 @@
+"""Coefficient matrices: every sampler as data for the NI engine."""
+
+from .matrix import CoeffMatrix
+from .registry import derive
+
+__all__ = ["CoeffMatrix", "derive"]

@@ -1,0 +1,6 @@
+"""Natural-Inference engine: coefficient matrices run as one loop."""
+from .ni import NISchedule, natural_inference, natural_inference_reference
+from .predictions import PREDICTION_TYPES, to_x0
+
+__all__ = ["NISchedule", "natural_inference", "natural_inference_reference",
+           "PREDICTION_TYPES", "to_x0"]

@@ -1,0 +1,46 @@
+"""Carry the JAX package's NCSN++ weights into the port's model."""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix, out):
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            _flatten(v, name + ".", out)
+        else:
+            out[name] = v
+
+
+def load_jax_params(model, params, dtype: torch.dtype | None = None):
+    """Fill ``model`` (the port's ``NCSNpp``) from a flax param tree.
+
+    ``params``: the ``["params"]`` tree of the JAX package's ``NCSNpp`` as
+    nested dicts of numpy arrays (``{"m0": {"kernel", "bias"}, "m3":
+    {"Conv_0": {...}, ...}, ...}``).  Names and layouts are the same on both
+    sides, so each leaf is copied as it is.  With ``dtype`` the model is cast
+    first (e.g. ``torch.bfloat16``).  Raises on a missing, extra or
+    mis-shaped leaf.  Returns the model."""
+    flat: dict[str, object] = {}
+    _flatten(params, "", flat)
+    if dtype is not None:
+        model.to(dtype)
+    own = dict(model.layers.named_parameters())
+    missing = sorted(own.keys() - flat.keys())
+    extra = sorted(flat.keys() - own.keys())
+    if missing or extra:
+        raise KeyError(f"param trees differ: missing {missing[:8]}, "
+                       f"extra {extra[:8]}")
+    with torch.no_grad():
+        for name, p in own.items():
+            a = np.asarray(flat[name])
+            if a.shape != tuple(p.shape):
+                raise ValueError(f"{name}: JAX shape {a.shape} != port "
+                                 f"shape {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.ascontiguousarray(a, np.float32)))
+    return model

@@ -1,0 +1,88 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+entry points refuse to run on a missing card, and its registry refuses
+derivations that are not ported."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from naturaldiffusion_tpu_torch.apps.cifar10_ni import make_sampler
+from naturaldiffusion_tpu_torch.coeffs import registry
+from naturaldiffusion_tpu_torch.engine import NISchedule
+from naturaldiffusion_tpu_torch.models.ncsnpp import NCSNpp, NCSNppConfig
+from torch_port_util import SMALL
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_PROBE = f"""
+import sys
+import torch
+torch.set_num_threads(2)
+from naturaldiffusion_tpu_torch.apps.cifar10_ni import make_sampler
+from naturaldiffusion_tpu_torch.coeffs import registry
+from naturaldiffusion_tpu_torch.models.ncsnpp import NCSNpp, NCSNppConfig
+model = NCSNpp(NCSNppConfig(**{SMALL!r}), device="cpu")
+run = make_sampler(model, registry.derive("ddim", 2), dtype=torch.float32,
+                   device="cpu")
+out = run(torch.randn(1, 8, 8, 3))
+assert torch.isfinite(out).all()
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "naturaldiffusion_tpu")
+             or k.startswith(("jax.", "jaxlib", "naturaldiffusion_tpu.")))
+print("LEAKED", bad)
+"""
+
+
+def test_port_runs_without_jax_in_a_fresh_process():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "LEAKED []" in res.stdout, res.stdout
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|naturaldiffusion_tpu)"
+                     r"(\.|\s|$)", re.M)
+    files = list((ROOT / "naturaldiffusion_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    offenders = [str(f) for f in files if pat.search(f.read_text())]
+    assert not offenders
+
+
+def test_entry_points_refuse_a_missing_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = NCSNppConfig(**SMALL)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NCSNpp(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NISchedule.from_matrix(registry.derive("ddpm", 2))
+    model = NCSNpp(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_sampler(model, registry.derive("ddpm", 2))
+    from naturaldiffusion_tpu_torch.apps.cifar10_ni import main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--num", "1"])
+
+
+@pytest.mark.parametrize("name", ["dpmsolver2s", "ode_heun", "deis_tab",
+                                  "flow_euler", "nonexistent"])
+def test_registry_refuses_unported_derivations(name):
+    with pytest.raises(KeyError, match="not ported yet"):
+        registry.derive(name, 10)
+
+
+def test_registry_derives_the_ported_samplers():
+    m = registry.derive("ddpm", 10)
+    assert m.x0.shape == (10, 10) and np.isfinite(m.eps).all()
+    assert not m.is_deterministic
+    assert registry.derive("ddim", 10).is_deterministic

@@ -1,0 +1,42 @@
+"""Shared helpers of the ``test_torch_*`` files: random weights for the JAX
+NCSN++ made with numpy, so the same weights go through both packages."""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+# the fused-resblock test config (tests/test_conv3x3.py), plus attention at
+# 4x4 so AttnBlockpp is on the path
+SMALL = dict(nf=128, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(4,),
+             image_size=8)
+
+
+def random_flax_params(shapes, rng: np.random.Generator) -> dict:
+    """A param tree of ``shapes`` (a flax ``eval_shape`` tree) as nested
+    dicts of float32 numpy arrays, every leaf non-trivial: kernels scaled by
+    1/sqrt(fan_in) so activations stay O(1) (the JAX init zeroes the
+    residual and head convs, which would hide a wrong conv), GroupNorm
+    scales near 1, biases small."""
+    out = {}
+    for k, v in shapes.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            out[k] = random_flax_params(v, rng)
+            continue
+        shape = tuple(v.shape)
+        if k == "scale":
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif k in ("bias", "b"):
+            a = 0.1 * rng.standard_normal(shape)
+        else:
+            fan_in = math.prod(shape[:-1])
+            a = rng.standard_normal(shape) / math.sqrt(fan_in)
+        out[k] = a.astype(np.float32)
+    return out
+
+
+def rel_l2(a, b) -> float:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
