@@ -34,7 +34,7 @@ import subprocess
 import sys
 import time
 
-BUDGET_S = 600          # whole run, build included; the target is < 300
+BUDGET_S = 300          # whole run, build included
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 BATCH, STEPS, SEED = 64, 10, 0
@@ -51,11 +51,12 @@ STATS_TOL = 1e-4
 # full-width forward, f32 card vs f32 CPU: 44 resblocks of f32 sums in
 # other orders; relative L2
 FORWARD_TOL = 1e-4
-# 10-step NI, bf16 card vs f32 CPU: bf16 activations and weights (~4e-3
-# relative per rounding; 8e-3 relative L2 per forward at a small config)
-# through 44 resblocks and 10 chained steps; relative L2.  A wrong kernel
-# gives O(1)
-SLICE_TOL = 1e-1
+# 10-step NI, bf16 card vs f32 CPU, relative L2: sound runs of the
+# kernels read 3.9e-3 on an H100, and so does the same run through the
+# plain versions in bf16 on the card (the "control" numbers of the slice
+# phase); 2e-2 is five times that, so a fault of a few percent anywhere in
+# the slice shows
+SLICE_TOL = 2e-2
 # the same run in f32 on the card: f32 forward differences (~1e-6) grow by
 # 1/alpha (~160 at t=999) in eps -> x0; relative L2
 SLICE_F32_TOL = 1e-3
@@ -120,6 +121,18 @@ class Timer:
             e.synchronize()
             ts.append(s.elapsed_time(e))
         return statistics.median(ts)
+
+
+def host_us(torch, fn, n=200):
+    """Host microseconds per call of ``fn``: the wall time of ``n`` calls
+    issued back to back, the card left to catch up afterwards."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / n * 1e6
 
 
 def check_close(what, got, want, tol):
@@ -289,11 +302,13 @@ def phase_kernels(model_bf16, details):
             else:
                 run = lambda: C.conv3x3_gn(xx, ww, bb, **kw)    # noqa: E731
             def plain(xx=xx, ww=ww, bb=bb, kw=kw):
-                # cuDNN may pick a Winograd or FFT algorithm, ~1e-5 off
-                # in f32; its direct-GEMM fallback keeps the oracle exact
-                with torch.backends.cudnn.flags(enabled=False):
-                    return C.conv3x3_gn_reference(xx, ww, bb, **kw)
-            g, p = run(), plain()
+                return C.conv3x3_gn_reference(xx, ww, bb, **kw)
+            # the oracle: cuDNN may pick a Winograd or FFT algorithm, ~1e-5
+            # off in f32; its direct-GEMM fallback keeps the check exact.
+            # The plain version is timed as PyTorch runs it, cuDNN on
+            with torch.backends.cudnn.flags(enabled=False):
+                p = plain()
+            g = run()
             g, p = (g if sig[4] else (g,)), (p if sig[4] else (p,))
             dn = str(dtype)
             row[f"err_{dn}"], row[f"rel_err_{dn}"] = check_close(
@@ -319,6 +334,24 @@ def phase_kernels(model_bf16, details):
                  row["bound_by"]) = conv_cost(sig, 2, dn)
         rows[kind].append(row)
     details["convs"] = rows
+
+    # host cost of one launch through each wrapper, beside one PyTorch op's
+    host = {"weighted_sum": host_us(torch, lambda: WS.fused_weighted_sum(
+        wx, we, bufx, bufe, lx, le))}
+    for kind, sig in (
+            ("conv3x3", ((BATCH, 32, 32, 3), (3, 3, 3, 128), False, False,
+                         False)),
+            ("conv3x3_gn", ((BATCH, 4, 4, 256), (3, 3, 256, 256), True, True,
+                            True))):
+        xx, ww, bb, pre, sk = conv_inputs(torch, sig, torch.bfloat16, gen)
+        if kind == "conv3x3":
+            host[kind] = host_us(torch, lambda: C.conv3x3(xx, ww, bb))
+        else:
+            host[kind] = host_us(torch, lambda: C.conv3x3_gn(
+                xx, ww, bb, pre=pre, skip=sk, skip_rescale=True,
+                emit_stats=True))
+    host["torch.add"] = host_us(torch, lambda: torch.add(bufx, 1.0))
+    details["host_us_per_launch"] = host
 
     meta = {"conv3x3": ("naturaldiffusion_tpu/ops/conv3x3.py:200", n_plain),
             "conv3x3_gn": ("naturaldiffusion_tpu/ops/conv3x3.py:600", n_gn)}
@@ -357,6 +390,7 @@ def phase_kernels(model_bf16, details):
           checks={k: len(v) for k, v in rows.items()},
           tolerances=dict(f32=F32_TOL, bf16=BF16_TOL, stats=STATS_TOL),
           per_forward_launches={"conv3x3": n_plain, "conv3x3_gn": n_gn},
+          host_us_per_launch={k: round(v, 2) for k, v in host.items()},
           kernels={k["name"]: dict(
               {f: round(k[f], 4) for f in ("ms", "plain_ms", "library_ms",
                                           "bound_ms")},
@@ -386,6 +420,43 @@ def phase_forward(model_f32):
     phase("forward", t, rel_l2=err, tol=FORWARD_TOL,
           params=sum(p.numel() for p in model_f32.parameters()),
           out_abs_max=float(want.abs().max()))
+
+
+def slice_controls(model_f32, matrix, init, noises, want):
+    """Two readings beside the slice check, on its first 2 samples: the
+    same bf16 run through the plain versions on the card (what bf16 alone
+    costs), and through the kernels with the time conditioning 1 % off (a
+    small fault).  Both are relative L2 against the CPU float32 run."""
+    import importlib
+    import torch
+    from naturaldiffusion_tpu_torch.apps.cifar10_ni import make_sampler
+    from naturaldiffusion_tpu_torch.ops import conv3x3 as C
+    from naturaldiffusion_tpu_torch.ops import weighted_sum as WS
+    ni = importlib.import_module("naturaldiffusion_tpu_torch.engine.ni")
+
+    saved = (C.conv3x3, C.conv3x3_gn, ni.fused_weighted_sum)
+    C.conv3x3 = lambda x, w, b=None: C.conv3x3_gn_reference(x, w, b)
+    C.conv3x3_gn = C.conv3x3_gn_reference
+    ni.fused_weighted_sum = WS.fused_weighted_sum_reference
+    try:
+        plain = make_sampler(model_f32, matrix, micro=BATCH,
+                             dtype=torch.bfloat16, device="cuda")(
+            init, noises=noises)
+    finally:
+        C.conv3x3, C.conv3x3_gn, ni.fused_weighted_sum = saved
+
+    class TimeOff(torch.nn.Module):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, x, t):
+            return self.inner(x, t * 1.01)
+
+    fault = make_sampler(TimeOff(model_f32), matrix, micro=BATCH,
+                         dtype=torch.bfloat16, device="cuda")(
+        init, noises=noises)
+    return rel_l2(plain, want), rel_l2(fault, want)
 
 
 def phase_slice(model_f32, n_plain, n_gn, smi):
@@ -430,6 +501,8 @@ def phase_slice(model_f32, n_plain, n_gn, smi):
                           dtype=torch.float32, device="cuda")
     got32 = card32(init[:2], noises=noises[:, :2])
     err, err32 = rel_l2(out[:2], want), rel_l2(got32, want)
+    ctl_plain, ctl_fault = slice_controls(model_f32, matrix, init[:2],
+                                          noises[:, :2], want)
     if err > SLICE_TOL or err32 > SLICE_F32_TOL:
         raise AssertionError(f"slice: rel L2 {err:.3e} (bf16, tol "
                              f"{SLICE_TOL:g}), {err32:.3e} (f32, tol "
@@ -437,6 +510,8 @@ def phase_slice(model_f32, n_plain, n_gn, smi):
     phase("slice", t, img_per_s=BATCH / wall, wall_s=wall, card=smi,
           launches=launches, rel_l2_bf16_vs_cpu_f32=err, tol=SLICE_TOL,
           rel_l2_f32_vs_cpu_f32=err32, tol_f32=SLICE_F32_TOL,
+          control_plain_bf16_rel_l2=ctl_plain,
+          control_time_1pct_off_rel_l2=ctl_fault,
           sample_abs_max=float(out.abs().max()))
     return launches, BATCH / wall
 

@@ -9,7 +9,11 @@ it by name (:func:`.convert.load_jax_params`).
 
 Ported so far: what ``CIFAR10_DDPMPP_CONTINUOUS`` uses — BigGAN resblocks, no
 FIR, no progressive paths, positional embedding, conditional, no
-scale_by_sigma.  Other options raise ``NotImplementedError``.
+scale_by_sigma.  Other options raise ``NotImplementedError``.  The JAX
+config's fields that this walk never reads (``dropout``,
+``resamp_with_conv``, ``fir_kernel``, ``progressive_combine``,
+``fourier_scale``) are left out; each comes back with the slice that reads
+it.
 """
 
 from __future__ import annotations
@@ -33,22 +37,16 @@ class NCSNppConfig:
     ch_mult: Sequence[int] = (1, 2, 2, 2)
     num_res_blocks: int = 4
     attn_resolutions: Sequence[int] = (16,)
-    dropout: float = 0.1
-    resamp_with_conv: bool = True
     conditional: bool = True
     fir: bool = False
-    fir_kernel: Sequence[int] = (1, 3, 3, 1)
     skip_rescale: bool = True
     resblock_type: str = "biggan"            # "ddpm" | "biggan"
     progressive: str = "none"                # "none"|"output_skip"|"residual"
     progressive_input: str = "none"          # "none"|"input_skip"|"residual"
-    progressive_combine: str = "sum"         # "sum"|"cat"
     embedding_type: str = "positional"       # "positional"|"fourier"
-    fourier_scale: float = 16.0
     init_scale: float = 0.0
     centered: bool = True
     scale_by_sigma: bool = False
-    num_train_timesteps: int = 1000          # positional-embedding t scale
 
 
 # the config that produced checkpoint_8.pth

@@ -28,6 +28,11 @@ from . import _cuda
 
 _RSQRT2 = 0.7071067811865476
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# natdiff_conv3x3(dtype, has_pre, has_skip, emit_stats, x, w, b, pre_w,
+# pre_b, skip, scale, y, s1, s2, B, H, W, Cin, Cout, stream)
+_CONV_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+                  + [ctypes.c_float] + [ctypes.c_void_p] * 3
+                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def conv3x3_gn_reference(x, w, b=None, *, pre=None, skip=None,
@@ -104,20 +109,15 @@ def _launch(x, w, b, pre, skip, skip_rescale, emit_stats, what):
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lib = _cuda.load("conv3x3")
-    fn = lib.natdiff_conv3x3
-    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
-                   + [ctypes.c_float] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
+    fn = _cuda.entry("conv3x3", "natdiff_conv3x3", _CONV_ARGTYPES)
+    with _cuda.on_device(x):
         err = fn(_DTYPES[x.dtype], pre is not None, skip is not None,
                  bool(emit_stats), x.data_ptr(), w.data_ptr(), ptr(b),
                  ptr(pre[0] if pre else None), ptr(pre[1] if pre else None),
                  ptr(skip), _RSQRT2 if skip_rescale else 1.0, y.data_ptr(),
                  ptr(s1), ptr(s2), bsz, hh, ww, cin, cout,
                  _cuda.stream_ptr(x))
-    _cuda.check(lib, err, what)
+    _cuda.check("conv3x3", err, what)
     return (y, s1, s2) if emit_stats else y
 
 

@@ -20,6 +20,11 @@ import torch
 
 from . import _cuda
 
+# natdiff_weighted_sum(wx, we, bufx, bufe, live_x, live_e, m, out, stream)
+_WS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_longlong, ctypes.c_void_p,
+                                         ctypes.c_void_p])
+
 
 def weighted_sum(w: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
     """``sum_j w[j] * buf[j]`` in float32.  ``w``: [n]; ``buf``: [n, ...]."""
@@ -74,17 +79,13 @@ def fused_weighted_sum(wx, we, bufx, bufe, live_x: int,
         raise ValueError(f"{live_x + live_e} live rows exceed the kernel's "
                          f"weight buffer")
     out = torch.empty(m, dtype=torch.float32, device=bufx.device)
-    lib = _cuda.load("weighted_sum")
-    fn = lib.natdiff_weighted_sum
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_longlong, ctypes.c_void_p,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(bufx.device):
+    fn = _cuda.entry("weighted_sum", "natdiff_weighted_sum",
+                     _WS_ARGTYPES)
+    with _cuda.on_device(bufx):
         err = fn(wx.data_ptr(), we.data_ptr(), bufx.data_ptr(),
                  bufe.data_ptr(), live_x, live_e, m, out.data_ptr(),
                  _cuda.stream_ptr(bufx))
-    _cuda.check(lib, err, "weighted_sum")
+    _cuda.check("weighted_sum", err, "weighted_sum")
     fused_weighted_sum.launches += 1
     return out
 
