@@ -17,6 +17,19 @@ printed as one line with its numbers and seconds as it ends:
            in bf16 through ``apps.cifar10_ni.make_sampler``, launch counts
            read around it, img/s, and the first 2 samples against a CPU
            float32 run fed the same noises.
+  dit_kernels   kernels K9 (flash attention) and K7 (W8A16 matmul) against
+           their plain versions at DiT-XL/2's shapes (and K9 at an
+           unaligned t = 250), timed as in ``kernels``.
+  dit_forward   one full-width DiT-XL/2 CFG forward (model batch 2) in
+           float32: the card (kernels) against the CPU (plain versions),
+           then the same under w8.
+  dit_slice     the DiT path: ``apps.bench_dit``'s workload, 50-step DDIM
+           NI at one image (model batch 2), bf16, modulations hoisted,
+           then the same under w8; launch counts, img/min, identical CFG
+           halves, and a 10-step bf16 run against an f32 run of the plain
+           versions on the card, beside two controls.
+  dit_validate  ``apps.validate_dit`` at full width (DDIM, 10 steps, f32) on
+           the card: direct recursion against NI within its 1e-3 check.
 
 Any failure raises and exits non-zero.  The last two lines are the kernels
 JSON and ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -25,6 +38,7 @@ JSON and ``{"ok": true, "device": {...}}``.  Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -38,6 +52,7 @@ BUDGET_S = 300          # whole run, build included
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 BATCH, STEPS, SEED = 64, 10, 0
+SPIN_CYCLES = 2_000_000     # ~1 ms at the H100's ~1.98 GHz SM clock
 
 # tolerances of a kernel against its plain version on the same inputs
 # float32: the same f32 products summed in another order (~1e-6 relative)
@@ -60,6 +75,23 @@ SLICE_TOL = 2e-2
 # the same run in f32 on the card: f32 forward differences (~1e-6) grow by
 # 1/alpha (~160 at t=999) in eps -> x0; relative L2
 SLICE_F32_TOL = 1e-3
+
+DIT_MODEL, DIT_STEPS, DIT_ACC_STEPS, DIT_CFG_SCALE = "DiT-XL/2", 50, 10, 4.0
+# full-width DiT-XL/2 forward, f32 card vs f32 CPU, relative L2: K9's f32
+# path (bf16 hi/lo splits, ~1e-5 per call) and f32 sums in other orders
+# through 28 blocks; sound runs read 9.3e-6 on an H100
+DIT_FORWARD_TOL = 1e-4
+# the same under w8: each QDense rounds its activations to bf16, so the
+# forward is a bf16 computation, and last-bit f32 differences flip whole
+# bf16 steps; sound runs read 6.2e-3 on an H100 (quantization itself moves
+# the output 1.2e-2, printed beside it); 2e-2 is 3x that, while a wrong
+# tile, scale or bias of K7 moves the output by O(1)
+DIT_W8_FORWARD_TOL = 2e-2
+# 10-step DiT NI, bf16 kernels vs f32 plain versions on the card, rel L2:
+# sound runs read 3.6e-2 on an H100, and so does the same run through the
+# plain versions in bf16 on the card; the kernels with the time 1 % off
+# read 0.36; 0.1 sits 2.8x above the sound runs and 3.6x below that fault
+DIT_SLICE_TOL = 1e-1
 
 T0 = time.perf_counter()
 
@@ -99,7 +131,10 @@ def rel_l2(a, b):
 
 class Timer:
     """Median CUDA-event time of one call, the L2 cache flushed before each
-    timed run (the main path finds these operands cold)."""
+    timed run (the main path finds these operands cold).  A ~1 ms device
+    spin is queued after the flush, so the wrapper's host time (tens of
+    microseconds per launch) is spent while the card is still busy and
+    never lands between the two events."""
 
     def __init__(self, torch, reps=7):
         self.torch = torch
@@ -113,6 +148,7 @@ class Timer:
         ts = []
         for _ in range(self.reps):
             self.flush.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -516,6 +552,416 @@ def phase_slice(model_f32, n_plain, n_gn, smi):
     return launches, BATCH / wall
 
 
+# ------------------------------------------------------------------ DiT path
+
+def randomize_dit_(model, seed):
+    """Every DiT weight random from ``seed``, made on the model's device:
+    the JAX init zeroes every adaLN modulation and the final linear, so a
+    forward at init outputs 0 and hides every fault.  Kernels
+    N(0, 1/fan_in), biases 0.1 N(0, 1), the label table N(0, 0.02)."""
+    import torch
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("embedding"):
+                p.normal_(0.0, 0.02, generator=g)
+            elif name.endswith("bias"):
+                p.normal_(0.0, 0.1, generator=g)
+            else:
+                p.normal_(0.0, 1.0 / math.sqrt(math.prod(p.shape[:-1])),
+                          generator=g)
+    return model
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Within the block, the DiT path's kernels K1, K7 and K9 are replaced
+    by their plain PyTorch versions (also for CUDA tensors)."""
+    import importlib
+    from naturaldiffusion_tpu_torch.ops import attention as A
+    from naturaldiffusion_tpu_torch.ops import qmatmul as Q
+    from naturaldiffusion_tpu_torch.ops import weighted_sum as WS
+    ni = importlib.import_module("naturaldiffusion_tpu_torch.engine.ni")
+    saved = (A.flash_attention, Q.matmul_wdq, ni.fused_weighted_sum)
+    A.flash_attention = A.mha_reference
+    Q.matmul_wdq = Q.matmul_wdq_reference
+    ni.fused_weighted_sum = WS.fused_weighted_sum_reference
+    try:
+        yield
+    finally:
+        A.flash_attention, Q.matmul_wdq, ni.fused_weighted_sum = saved
+
+
+def dit_counters():
+    from naturaldiffusion_tpu_torch.ops import attention as A
+    from naturaldiffusion_tpu_torch.ops import qmatmul as Q
+    from naturaldiffusion_tpu_torch.ops import weighted_sum as WS
+    return {"fused_weighted_sum": WS.fused_weighted_sum,
+            "flash_attention": A.flash_attention,
+            "matmul_wdq": Q.matmul_wdq}
+
+
+def read_counts(counters):
+    return {k: f.launches for k, f in counters.items()}
+
+
+def zero_counts(counters):
+    for f in counters.values():
+        f.launches = 0
+
+
+def phase_dit_kernels(details):
+    """K9 and K7 at the shapes of one DiT-XL/2 CFG forward (model batch 2:
+    512 tokens), against their plain versions, then timed.  Per-forward
+    numbers are sums over its launches: 28 of K9, 4 x 28 of K7."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from naturaldiffusion_tpu_torch.models.dit import DIT_CONFIGS
+    from naturaldiffusion_tpu_torch.ops import attention as A
+    from naturaldiffusion_tpu_torch.ops import qmatmul as Q
+    from naturaldiffusion_tpu_torch.ops.quant import quantize_weight
+
+    t0 = time.perf_counter()
+    cfg = DIT_CONFIGS[DIT_MODEL]
+    d, h, depth = cfg.hidden_size, cfg.num_heads, cfg.depth
+    dh = d // h
+    tokens = (cfg.input_size // cfg.patch_size) ** 2
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    # K9: the model's strided views of one qkv tensor at t = 256, and
+    # contiguous [B, H, T, D] at the unaligned t = 250, there also at the
+    # head dim of 64 that MMDiT will use
+    k9 = {}
+    for t, hd, dtype, tol in ((tokens, dh, torch.float32, F32_TOL),
+                              (tokens, dh, torch.bfloat16, BF16_TOL),
+                              (250, dh, torch.float32, F32_TOL),
+                              (250, dh, torch.bfloat16, BF16_TOL),
+                              (250, 64, torch.float32, F32_TOL),
+                              (250, 64, torch.bfloat16, BF16_TOL)):
+        qkv = rn(2, t, 3, h, hd).to(dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        if t != tokens:
+            q, k, v = (a.contiguous() for a in (q, k, v))
+        scale = 1.0 / math.sqrt(hd)
+        got = A.flash_attention(q, k, v, scale)
+        want = A.mha_reference(q, k, v, scale)
+        key = f"t{t}_d{hd}_{str(dtype).split('.')[-1]}"
+        k9[key] = check_close(f"K9 flash_attention {key}", got, want, tol)
+        if t == tokens and dtype == torch.bfloat16:     # the path's call
+            qc, kc, vc = (a.contiguous() for a in (q, k, v))
+
+            def sdpa(qc=qc, kc=kc, vc=vc):
+                with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                    return F.scaled_dot_product_attention(qc, kc, vc,
+                                                          scale=scale)
+            k9_time = dict(
+                ms=timer(lambda: A.flash_attention(q, k, v, scale)),
+                plain_ms=timer(lambda: A.mha_reference(q, k, v, scale)),
+                library_ms=timer(sdpa))
+            k9_host = host_us(torch, lambda: A.flash_attention(q, k, v,
+                                                               scale))
+    b2 = 2
+    nbytes9 = 4 * b2 * h * tokens * dh * 2
+    flops9 = 4.0 * b2 * h * tokens * tokens * dh
+    k9_time["bound_ms"] = max(nbytes9 / HBM_BYTES_PER_S,
+                              flops9 / PEAK_FLOPS["torch.bfloat16"]) * 1e3
+    k9_bound_by = ("operations" if flops9 / PEAK_FLOPS["torch.bfloat16"]
+                   >= nbytes9 / HBM_BYTES_PER_S else "bytes")
+
+    # K7: the four QDense products of a block at M = 512, bf16 with bias;
+    # one f32 activation call too (the w8 forward check runs in f32)
+    m = b2 * tokens
+    hidden = int(d * cfg.mlp_ratio)
+    shapes = {"qkv": (d, 3 * d), "proj": (d, d), "fc1": (d, hidden),
+              "fc2": (hidden, d)}
+    k7 = {}
+    k7_host = None
+    for name, (kk, n) in shapes.items():
+        w_i8, s_w = quantize_weight(rn(kk, n) / math.sqrt(kk))
+        s_w = s_w.reshape(-1)
+        b32 = (0.1 * rn(n)).to(torch.bfloat16).float()
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32,
+                                                        F32_TOL)):
+            if dtype == torch.float32 and name != "fc1":
+                continue
+            x = rn(m, kk).to(dtype)
+            got = Q.matmul_wdq(x, w_i8, s_w, b32)
+            want = Q.matmul_wdq_reference(x, w_i8, s_w, b32)
+            key = f"{name}_{str(dtype).split('.')[-1]}"
+            k7[key] = dict(zip(("max_abs_err", "max_rel_err"), check_close(
+                f"K7 matmul_wdq {key}", got, want, tol)))
+        x = rn(m, kk).to(torch.bfloat16)
+        w_dq = (w_i8.float() * s_w).to(torch.bfloat16)
+        flops = 2.0 * m * kk * n
+        nbytes = 2 * m * kk + kk * n + 4 * n + 4 * n + 2 * m * n
+        k7[f"{name}_bfloat16"].update(
+            M=m, K=kk, N=n, blocks=(m // 128) * (n // 128),
+            ms=timer(lambda: Q.matmul_wdq(x, w_i8, s_w, b32)),
+            plain_ms=timer(lambda: Q.matmul_wdq_reference(x, w_i8, s_w,
+                                                          b32)),
+            library_ms=timer(lambda: torch.matmul(x, w_dq)),
+            bound_ms=max(flops / PEAK_FLOPS["torch.bfloat16"],
+                         nbytes / HBM_BYTES_PER_S) * 1e3,
+            bound_by=("operations" if flops / PEAK_FLOPS["torch.bfloat16"]
+                      >= nbytes / HBM_BYTES_PER_S else "bytes"),
+            flops=flops)
+        if name == "fc1":
+            k7_host = host_us(torch, lambda: Q.matmul_wdq(x, w_i8, s_w, b32))
+    timed7 = [r for r in k7.values() if "ms" in r]
+    k7_tot = {f: depth * sum(r[f] for r in timed7)
+              for f in ("ms", "plain_ms", "library_ms", "bound_ms", "flops")}
+    details["dit_flash_attention"] = dict(
+        checks=k9, per_launch=k9_time, bytes=nbytes9, flops=flops9,
+        host_us=k9_host)
+    details["dit_qmatmul"] = dict(shapes=k7, per_forward=k7_tot,
+                                  host_us=k7_host)
+    out = [
+        dict(name="flash_attention", route="cuda",
+             source="naturaldiffusion_tpu_torch/csrc/attention.cu",
+             replaces="naturaldiffusion_tpu/ops/attention.py:32",
+             max_abs_err=max(e[0] for e in k9.values()),
+             max_rel_err=max(e[1] for e in k9.values()),
+             **{f: depth * k9_time[f] for f in ("ms", "plain_ms",
+                                                "library_ms", "bound_ms")},
+             bound_by=k9_bound_by),
+        dict(name="qmatmul", route="cuda",
+             source="naturaldiffusion_tpu_torch/csrc/qmatmul.cu",
+             replaces="naturaldiffusion_tpu/ops/qmatmul.py:48",
+             max_abs_err=max(r["max_abs_err"] for r in k7.values()),
+             max_rel_err=max(r["max_rel_err"] for r in k7.values()),
+             **{f: k7_tot[f] for f in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms")},
+             bound_by="operations"),
+    ]
+    for r in timed7:
+        print(f"  qmatmul M={r['M']} K={r['K']} N={r['N']} "
+              f"({r['blocks']} blocks): {r['ms']:.4f} ms "
+              f"({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s), plain "
+              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    phase("dit_kernels", t0,
+          checks={"flash_attention": len(k9), "qmatmul": len(k7)},
+          tolerances=dict(f32=F32_TOL, bf16=BF16_TOL),
+          flash_attention_per_launch={f: round(v, 5)
+                                      for f, v in k9_time.items()},
+          flash_attention_tflops=flops9 / k9_time["ms"] / 1e9,
+          qmatmul_tflops=k7_tot["flops"] / k7_tot["ms"] / 1e9,
+          host_us_per_launch={"flash_attention": round(k9_host, 2),
+                              "qmatmul": round(k7_host, 2)},
+          kernels={k["name"]: dict(
+              {f: round(k[f], 4) for f in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms")},
+              max_abs_err=k["max_abs_err"], max_rel_err=k["max_rel_err"])
+              for k in out},
+          note="ms: sum over one DiT-XL/2 CFG forward's launches, bf16")
+    return out
+
+
+def profile_dit_forward(torch, model, z0, y):
+    """Device time of one bf16 CFG forward (modulations hoisted) by kernel
+    name, from ``torch.profiler``: the sum over the kernels that ran, the
+    wall time around the profiled call, and the 8 largest kernels.  A
+    profiler that records no device time gives ``device_ms = None``."""
+    from torch.profiler import ProfilerActivity, profile
+    from naturaldiffusion_tpu_torch.models.dit import (dit_schedule_mods,
+                                                       forward_with_cfg)
+    cfg = model.config
+    t = torch.full((z0.shape[0],), 999.0, device="cuda")
+    with torch.no_grad():
+        mods = dit_schedule_mods(model, t[:1], y)
+        mods = {"blocks": tuple(m[0] for m in mods["blocks"]),
+                "final": mods["final"][0]}
+
+        def fwd():
+            return forward_with_cfg(
+                lambda xx, tt, yy: model(xx, tt, yy, mods=mods), z0, t, y,
+                DIT_CFG_SCALE, cfg.in_channels)
+        fwd()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tw = time.perf_counter()
+            fwd()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - tw
+    kern = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(
+        device_ms=dev_us / 1e3 if dev_us else None,
+        wall_ms_profiled=wall * 1e3, kernel_launches=sum(e.count
+                                                         for e in kern),
+        top=[(e.key[:60], e.count, e.self_device_time_total / 1e3)
+             for e in top])
+
+
+def dit_inputs(torch, cfg, gen, device):
+    """One image as the CFG pair: both halves the same latents, labels
+    ``[class, null]``."""
+    half = torch.randn((1, cfg.input_size, cfg.input_size, cfg.in_channels),
+                       generator=gen, device=device)
+    y = torch.tensor([207, cfg.num_classes], device=device)
+    return torch.cat([half, half]), y
+
+
+def phase_dit_forward(model32):
+    import torch
+    from naturaldiffusion_tpu_torch.models.dit import forward_with_cfg
+
+    t0 = time.perf_counter()
+    cfg = model32.config
+    cpu = copy.deepcopy(model32).to("cpu")
+    gen = torch.Generator().manual_seed(SEED + 12)
+    x, y = dit_inputs(torch, cfg, gen, "cpu")
+    x[1] = torch.randn(x[1].shape, generator=gen)   # the wrapper drops it
+    t = torch.tensor([999.0, 999.0])
+    counters = dit_counters()
+    res, wants = {}, {}
+    for quant in (None, "w8"):
+        model32.set_quant(quant)
+        cpu.set_quant(quant)
+        zero_counts(counters)
+        with torch.no_grad():
+            got = forward_with_cfg(model32, x.cuda(), t.cuda(), y.cuda(),
+                                   DIT_CFG_SCALE, cfg.in_channels)
+            torch.cuda.synchronize()
+            counts = read_counts(counters)
+            tc = time.perf_counter()
+            want = forward_with_cfg(cpu, x, t, y, DIT_CFG_SCALE,
+                                    cfg.in_channels)
+            cpu_s = time.perf_counter() - tc
+        expect = {"fused_weighted_sum": 0, "flash_attention": cfg.depth,
+                  "matmul_wdq": 4 * cfg.depth if quant else 0}
+        err = rel_l2(got, want)
+        wants[quant] = want
+        res[quant or "float"] = dict(rel_l2=err, launches=counts,
+                                     cpu_seconds=cpu_s)
+        tol = DIT_W8_FORWARD_TOL if quant else DIT_FORWARD_TOL
+        if counts != expect:
+            raise AssertionError(f"dit_forward {quant}: launches {counts} "
+                                 f"!= {expect}")
+        if not (torch.isfinite(got).all() and err <= tol
+                and tuple(got.shape) == (2, 32, 32, cfg.out_channels)):
+            raise AssertionError(f"dit_forward {quant}: rel L2 {err:.3e} > "
+                                 f"{tol:g} or non-finite or misshapen")
+    model32.set_quant(None)
+    phase("dit_forward", t0, model=DIT_MODEL, results=res,
+          control_w8_vs_float_on_cpu_rel_l2=rel_l2(wants["w8"], wants[None]),
+          tol=DIT_FORWARD_TOL, tol_w8=DIT_W8_FORWARD_TOL,
+          params=sum(p.numel() for p in model32.parameters()),
+          out_abs_max=float(want.abs().max()))
+    del cpu
+
+
+def phase_dit_slice(model32, smi):
+    """The DiT path through ``apps.bench_dit.make_sampler``: 50-step DDIM
+    NI at one image in bf16, modulations hoisted, in both modes; then the
+    10-step accuracy check with its two controls."""
+    import torch
+    from naturaldiffusion_tpu_torch.apps import bench_dit
+    from naturaldiffusion_tpu_torch.coeffs import registry
+
+    t0 = time.perf_counter()
+    cfg = model32.config
+    model = copy.deepcopy(model32).to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    z, y = dit_inputs(torch, cfg, gen, "cuda")
+    z0 = z.to(torch.bfloat16)
+    counters = dit_counters()
+    runs = {}
+    for quant in (None, "w8"):
+        model.set_quant(quant)
+        run = bench_dit.make_sampler(model, registry.derive("ddim", DIT_STEPS),
+                                     cfg_scale=DIT_CFG_SCALE)
+        run(z0, y)                            # warm-up: quantization
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        walls = []
+        for i in range(3):
+            tr = time.perf_counter()
+            out = run(z0, y)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - tr)
+            if i == 0:                       # the counted run
+                counts = read_counts(counters)
+        expect = {"fused_weighted_sum": DIT_STEPS,
+                  "flash_attention": DIT_STEPS * cfg.depth,
+                  "matmul_wdq": 4 * DIT_STEPS * cfg.depth if quant else 0}
+        if counts != expect:
+            raise AssertionError(f"dit_slice {quant}: launches {counts} != "
+                                 f"{expect}")
+        if not (torch.isfinite(out).all() and out.shape == z0.shape):
+            raise AssertionError(f"dit_slice {quant}: non-finite or "
+                                 f"misshapen latents")
+        if not torch.equal(out[0], out[1]):
+            raise AssertionError(f"dit_slice {quant}: the CFG halves differ")
+        wall = statistics.median(walls)
+        prof = profile_dit_forward(torch, model, z0, y)
+        if prof["device_ms"] is not None:
+            prof["busy_share"] = prof["device_ms"] / (wall / DIT_STEPS * 1e3)
+        runs[quant or "float"] = dict(profile=prof,
+            img_per_min=60.0 / wall, sec_per_image=wall,
+            transformer_fwd_ms=wall / DIT_STEPS * 1e3, walls_s=walls,
+            launches=counts, mfu=bench_dit.flops_per_forward(cfg, 1, True)
+            * DIT_STEPS / (wall * PEAK_FLOPS["torch.bfloat16"]))
+
+    # accuracy: 10 steps in bf16 through the kernels against the same run
+    # in f32 through the plain versions on the card (TF32 off)
+    acc_matrix = registry.derive("ddim", DIT_ACC_STEPS)
+    model.set_quant(None)
+    with plain_versions():
+        want = bench_dit.make_sampler(model32, acc_matrix,
+                                      cfg_scale=DIT_CFG_SCALE)(z, y)
+        ctl_plain = rel_l2(bench_dit.make_sampler(
+            model, acc_matrix, cfg_scale=DIT_CFG_SCALE)(z0, y), want)
+    err = rel_l2(bench_dit.make_sampler(model, acc_matrix,
+                                        cfg_scale=DIT_CFG_SCALE)(z0, y), want)
+    saved = bench_dit.dit_schedule_mods
+    bench_dit.dit_schedule_mods = lambda m, t_all, yy: saved(m, t_all * 1.01,
+                                                             yy)
+    try:
+        ctl_fault = rel_l2(bench_dit.make_sampler(
+            model, acc_matrix, cfg_scale=DIT_CFG_SCALE)(z0, y), want)
+    finally:
+        bench_dit.dit_schedule_mods = saved
+    model.set_quant("w8")
+    err_w8 = rel_l2(bench_dit.make_sampler(
+        model, acc_matrix, cfg_scale=DIT_CFG_SCALE)(z0, y), want)
+    if err > DIT_SLICE_TOL:
+        raise AssertionError(f"dit_slice: {DIT_ACC_STEPS}-step bf16 rel L2 "
+                             f"{err:.3e} > {DIT_SLICE_TOL:g}")
+    phase("dit_slice", t0, model=DIT_MODEL, steps=DIT_STEPS, batch=1,
+          cfg_scale=DIT_CFG_SCALE, card=smi, runs=runs,
+          flops_per_fwd=bench_dit.flops_per_forward(cfg, 1, True),
+          acc_steps=DIT_ACC_STEPS, rel_l2_bf16_vs_plain_f32=err,
+          tol=DIT_SLICE_TOL, control_plain_bf16_rel_l2=ctl_plain,
+          control_time_1pct_off_rel_l2=ctl_fault,
+          reading_w8_bf16_rel_l2=err_w8,
+          latent_abs_max=float(want.abs().max()))
+    return runs
+
+
+def phase_dit_validate():
+    from naturaldiffusion_tpu_torch.apps import validate_dit
+
+    t0 = time.perf_counter()
+    rc = validate_dit.main(["--model", DIT_MODEL, "--alg", "ddim",
+                            "--steps", str(DIT_ACC_STEPS), "--device",
+                            "cuda"])
+    if rc != 0:
+        raise AssertionError("dit_validate: direct recursion and NI differ "
+                             "beyond validate_dit's 1e-3 check")
+    phase("dit_validate", t0, model=DIT_MODEL, alg="ddim",
+          steps=DIT_ACC_STEPS, rc=rc)
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -548,17 +994,40 @@ def main(argv=None) -> int:
     del model_bf16
     phase_forward(model)
     launches, ips = phase_slice(model, n_plain, n_gn, smi)
-    by_fn = {"weighted_sum": "fused_weighted_sum", "conv3x3": "conv3x3",
-             "conv3x3_gn": "conv3x3_gn"}
+    del model
+
+    from naturaldiffusion_tpu_torch.models.dit import DIT_CONFIGS, DiT
+    dit32 = randomize_dit_(DiT(DIT_CONFIGS[DIT_MODEL], device="cuda"),
+                           SEED + 10).eval()
+    kernels += phase_dit_kernels(details)
+    phase_dit_forward(dit32)
+    dit_runs = phase_dit_slice(dit32, smi)
+    del dit32
+    phase_dit_validate()
+
+    by_path = {"cifar_slice": launches,
+               "dit_slice": dit_runs["float"]["launches"],
+               "dit_slice_w8": dit_runs["w8"]["launches"]}
+    # each kernel's count from the path that exercises it: K1-K3 the
+    # CIFAR slice, K9 the DiT slice, K7 the DiT slice under w8
+    main_path = {"weighted_sum": ("cifar_slice", "fused_weighted_sum"),
+                 "conv3x3": ("cifar_slice", "conv3x3"),
+                 "conv3x3_gn": ("cifar_slice", "conv3x3_gn"),
+                 "flash_attention": ("dit_slice", "flash_attention"),
+                 "qmatmul": ("dit_slice_w8", "matmul_wdq")}
     for k in kernels:
-        k["launches"] = launches[by_fn[k["name"]]]
+        path, fn = main_path[k["name"]]
+        k["launches"] = by_path[path][fn]
+        k["launches_by_path"] = {p: c[fn] for p, c in by_path.items()
+                                 if c.get(fn)}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_by_path")
     kernels = [{k: kern[k] for k in keys} for kern in kernels]
     if args.out:
         with open(args.out, "w") as fh:
-            json.dump(dict(card=smi, img_per_s=ips, kernels=kernels,
-                           details=details), fh, indent=1)
+            json.dump(dict(card=smi, img_per_s=ips, dit=dit_runs,
+                           kernels=kernels, details=details), fh, indent=1)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,400 @@
+// Non-causal multi-head flash attention,
+//
+//   o[b, h, i, :] = sum_j softmax_j(scale * q[b, h, i, :] . k[b, h, j, :]) v[b, h, j, :]
+//
+// over keys j < T, with the softmax in f32 and the output in q's type.
+// Keys at or past T are masked to -inf inside the kernel, so any T works.
+//
+// Replaces the Pallas TPU flash-attention kernel reached through `_flash`
+// in naturaldiffusion_tpu/ops/attention.py (the `jax.experimental.pallas.
+// ops.tpu.flash_attention` kernel).  There, an unaligned T is zero-padded
+// to 128/512 tokens and the pad keys are masked by segment ids; here the
+// mask is an index test, and nothing is padded in device memory.
+//
+// Design: one block of 4 warps per (b*h, 64 queries); each warp owns 16
+// query rows.  Q stays in registers as mma fragments for the whole run.
+// K and V go through shared memory in tiles of 64 keys; per tile a warp
+// computes S = Q K^T (mma.sync m16n8k16, bf16 in, f32 accumulate), masks,
+// updates its rows' running max and sum (online softmax in f32, exp2 with
+// the scale folded in), rescales its f32 output accumulator and adds P V,
+// P taken from the S registers without a trip through memory.  The head
+// dim D is a template parameter (64 for MMDiT, 72 for DiT).  72 is not a
+// multiple of the mma's k of 16, so the Q K^T reduction runs over D
+// rounded up to 16 with zero columns (80 for 72); P V's n dimension is D in
+// tiles of 8 (72 = 9 x 8).
+//
+// float32 inputs run the same tensor-core path with each operand split in
+// two bf16 terms, a = hi + lo (hi = bf16(a), lo = bf16(a - hi)), and three
+// products hi*hi + hi*lo + lo*hi: about 16 significant bits per operand,
+// so an f32 call agrees with an f32 softmax to ~1e-5 and checks the same
+// indexing tightly.
+//
+// Bound on the H100: at DiT-XL/2 ([2, 16, 256, 72], bf16) the call moves
+// 4.7 MB and does 0.6 GFLOP: bytes, 1.4 us.  The grid is 4 x 32 = 128
+// blocks for 132 SMs, one wave.  The tile loads are not overlapped with
+// the products (no cp.async or TMA pipeline yet): at 4 key tiles per block
+// that latency is most of the time, and overlapping it is later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 64;   // queries per block
+constexpr int BKV = 64;  // keys per tile
+constexpr int THREADS = 128;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1,
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// a pair of f32 values as bf16x2 words hi = bf16(a), lo = bf16(a - hi)
+__device__ __forceinline__ void split2(float a0, float a1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a0, a1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(a0 - hf.x, a1 - hf.y));
+}
+
+__device__ __forceinline__ float ld1(const float* p) { return *p; }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// 8 consecutive elements, 16-byte aligned, as f32
+__device__ __forceinline__ void ld8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void ld8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  p[0] = a;
+  p[1] = b;
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ o, long long s_b,
+             long long s_h, long long s_t, long long o_b, long long o_h,
+             long long o_t, int H, int Tlen, float scale_log2) {
+  constexpr int DK = (D + 15) / 16 * 16;     // Q K^T reduction, zero-padded
+  constexpr int NK = DK / 16;                // its k16 steps
+  constexpr int NV = D / 8;                  // P V's n8 tiles
+  constexpr int NS = sizeof(T) == 4 ? 2 : 1; // bf16 terms per operand
+  constexpr int SK = DK + 8;                 // row stride: no ldmatrix bank conflicts
+  constexpr int CH = D / 8;                  // 8-element chunks per row
+  __shared__ __align__(16) __nv_bfloat16 Ks[NS][BKV][SK];
+  __shared__ __align__(16) __nv_bfloat16 Vs[NS][BKV][SK];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // fragment row within 8
+  const int t = lane & 3;   // fragment column pair
+  const int bh = blockIdx.y;
+  const long long in_off = (long long)(bh / H) * s_b + (long long)(bh % H) * s_h;
+  const T* qb = q + in_off;
+  const T* kb = k + in_off;
+  const T* vb = v + in_off;
+  const int q0 = blockIdx.x * BQ + warp * 16;
+
+  // the zero columns D..DK of K are never written by the tile loads
+  for (int i = tid; i < NS * BKV * (SK - D); i += THREADS) {
+    const int s = i / (BKV * (SK - D));
+    const int r = (i / (SK - D)) % BKV;
+    Ks[s][r][D + i % (SK - D)] = __float2bfloat16(0.f);
+  }
+
+  // Q fragments straight from device memory: reg 0 = (row g, cols 2t,2t+1),
+  // 1 = (row g+8, same), 2 = (row g, cols +8), 3 = (row g+8, cols +8)
+  uint32_t qf[NS][NK][4];
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + g + ((i & 1) ? 8 : 0);
+      const int col = kk * 16 + 2 * t + ((i >> 1) ? 8 : 0);
+      float a0 = 0.f, a1 = 0.f;
+      if (row < Tlen && col < D) {
+        const T* p = qb + (long long)row * s_t + col;
+        a0 = ld1(p);
+        a1 = ld1(p + 1);
+      }
+      uint32_t hi, lo;
+      split2(a0, a1, hi, lo);
+      qf[0][kk][i] = hi;
+      if (NS == 2) qf[NS - 1][kk][i] = lo;
+    }
+  }
+
+  float acc[NV][4];
+#pragma unroll
+  for (int n = 0; n < NV; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g+8, log2 units
+  float l_run[2] = {0.f, 0.f};              // this thread's share of the sums
+
+  for (int kv0 = 0; kv0 < Tlen; kv0 += BKV) {
+    __syncthreads();  // the previous tile is no longer read
+    for (int c = tid; c < BKV * CH; c += THREADS) {
+      const int r = c / CH;
+      const int cc = (c % CH) * 8;
+      float kv[8], vv[8];
+      if (kv0 + r < Tlen) {
+        ld8(kb + (long long)(kv0 + r) * s_t + cc, kv);
+        ld8(vb + (long long)(kv0 + r) * s_t + cc, vv);
+      } else {
+        // zeros, not garbage: a masked key's p is 0, and 0 * NaN is NaN
+#pragma unroll
+        for (int e = 0; e < 8; ++e) kv[e] = vv[e] = 0.f;
+      }
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        split2(kv[2 * e], kv[2 * e + 1], kh[e], kl[e]);
+        split2(vv[2 * e], vv[2 * e + 1], vh[e], vl[e]);
+      }
+      *reinterpret_cast<uint4*>(&Ks[0][r][cc]) = make_uint4(kh[0], kh[1], kh[2], kh[3]);
+      *reinterpret_cast<uint4*>(&Vs[0][r][cc]) = make_uint4(vh[0], vh[1], vh[2], vh[3]);
+      if (NS == 2) {
+        *reinterpret_cast<uint4*>(&Ks[NS - 1][r][cc]) = make_uint4(kl[0], kl[1], kl[2], kl[3]);
+        *reinterpret_cast<uint4*>(&Vs[NS - 1][r][cc]) = make_uint4(vl[0], vl[1], vl[2], vl[3]);
+      }
+    }
+    __syncthreads();
+
+    // S = Q K^T over this tile: 8 n8 tiles of keys
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        // matrices: (keys +0, cols +0), (keys +0, cols +8), (keys +8, cols
+        // +0), (keys +8, cols +8) -> B fragments of key tiles 2np, 2np+1
+        const int kr = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int kc = kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t r[4];
+        ldsm_x4(r, &Ks[0][kr][kc]);
+        mma_bf16(s[2 * np], qf[0][kk], r[0], r[1]);
+        mma_bf16(s[2 * np + 1], qf[0][kk], r[2], r[3]);
+        if (NS == 2) {
+          mma_bf16(s[2 * np], qf[NS - 1][kk], r[0], r[1]);
+          mma_bf16(s[2 * np + 1], qf[NS - 1][kk], r[2], r[3]);
+          ldsm_x4(r, &Ks[NS - 1][kr][kc]);
+          mma_bf16(s[2 * np], qf[0][kk], r[0], r[1]);
+          mma_bf16(s[2 * np + 1], qf[0][kk], r[2], r[3]);
+        }
+      }
+    }
+
+    // mask, running max, p = exp2(s - max), running sum
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kv0 + j * 8 + 2 * t + (e & 1);
+        const float x = key < Tlen ? s[j][e] * scale_log2 : -INFINITY;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      // key 0 is in the first tile, so the new max is finite from there on
+      const float m_new = fmaxf(m_run[i], mx[i]);
+      alpha[i] = exp2f(m_run[i] - m_new);
+      m_run[i] = m_new;
+      l_run[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - m_run[e >> 1]);
+        s[j][e] = p;
+        l_run[e >> 1] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += P V: P's A fragment for keys 16ks.. is S tiles 2ks and 2ks+1
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t pa[NS][4];
+      {
+        uint32_t hi, lo;
+        split2(s[2 * ks][0], s[2 * ks][1], hi, lo);
+        pa[0][0] = hi; pa[NS - 1][0] = NS == 2 ? lo : hi;
+        split2(s[2 * ks][2], s[2 * ks][3], hi, lo);
+        pa[0][1] = hi; pa[NS - 1][1] = NS == 2 ? lo : hi;
+        split2(s[2 * ks + 1][0], s[2 * ks + 1][1], hi, lo);
+        pa[0][2] = hi; pa[NS - 1][2] = NS == 2 ? lo : hi;
+        split2(s[2 * ks + 1][2], s[2 * ks + 1][3], hi, lo);
+        pa[0][3] = hi; pa[NS - 1][3] = NS == 2 ? lo : hi;
+      }
+      const int vr = ks * 16 + (lane & 15);
+#pragma unroll
+      for (int np = 0; np < NV / 2; ++np) {
+        const int vc = np * 16 + (lane >> 4) * 8;
+        uint32_t r[4];
+        ldsm_x4_trans(r, &Vs[0][vr][vc]);
+        mma_bf16(acc[2 * np], pa[0], r[0], r[1]);
+        mma_bf16(acc[2 * np + 1], pa[0], r[2], r[3]);
+        if (NS == 2) {
+          mma_bf16(acc[2 * np], pa[NS - 1], r[0], r[1]);
+          mma_bf16(acc[2 * np + 1], pa[NS - 1], r[2], r[3]);
+          ldsm_x4_trans(r, &Vs[NS - 1][vr][vc]);
+          mma_bf16(acc[2 * np], pa[0], r[0], r[1]);
+          mma_bf16(acc[2 * np + 1], pa[0], r[2], r[3]);
+        }
+      }
+      if (NV % 2) {  // the odd last n8 tile (D = 72)
+        constexpr int nl = NV - 1;
+        uint32_t r0, r1;
+        ldsm_x2_trans(r0, r1, &Vs[0][vr][nl * 8]);
+        mma_bf16(acc[nl], pa[0], r0, r1);
+        if (NS == 2) {
+          mma_bf16(acc[nl], pa[NS - 1], r0, r1);
+          ldsm_x2_trans(r0, r1, &Vs[NS - 1][vr][nl * 8]);
+          mma_bf16(acc[nl], pa[0], r0, r1);
+        }
+      }
+    }
+  }
+
+  // normalise and store: c0,c1 at row g, c2,c3 at row g+8
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[i] = 1.f / l;
+  }
+  T* ob = o + (long long)(bh / H) * o_b + (long long)(bh % H) * o_h;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + g + 8 * h;
+    if (row < Tlen) {
+#pragma unroll
+      for (int n = 0; n < NV; ++n)
+        st2(ob + (long long)row * o_t + n * 8 + 2 * t,
+            acc[n][2 * h] * inv[h], acc[n][2 * h + 1] * inv[h]);
+    }
+  }
+}
+
+template <typename T, int D>
+void launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
+            const void* v, void* o, long long s_b, long long s_h,
+            long long s_t, long long o_b, long long o_h, long long o_t, int H,
+            int Tlen, float scale_log2) {
+  flash_kernel<T, D><<<grid, THREADS, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), s_b, s_h, s_t, o_b, o_h,
+      o_t, H, Tlen, scale_log2);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* natdiff_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// dtype: 0 = float32, 1 = bfloat16; d: 64 or 72.  q, k, v share the
+// element strides s_b, s_h, s_t (batch, head, token; the head dim is
+// contiguous), o has its own; every row start is 16-byte aligned (checked
+// by the Python wrapper).  scale_log2 = sm_scale * log2(e).
+int natdiff_flash_attention(int dtype, int d, const void* q, const void* k,
+                            const void* v, void* o, long long s_b,
+                            long long s_h, long long s_t, long long o_b,
+                            long long o_h, long long o_t, int B, int H,
+                            int Tlen, float scale_log2, void* stream) {
+  if (Tlen <= 0 || B <= 0 || H <= 0 || (long long)B * H > 65535)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)((Tlen + BQ - 1) / BQ), (unsigned)(B * H));
+  cudaStream_t st = (cudaStream_t)stream;
+#define NATDIFF_CASE(DT, TT, DD)                                               \
+  if (dtype == DT && d == DD) {                                                \
+    launch<TT, DD>(grid, st, q, k, v, o, s_b, s_h, s_t, o_b, o_h, o_t, H,     \
+                   Tlen, scale_log2);                                         \
+    return (int)cudaGetLastError();                                           \
+  }
+  NATDIFF_CASE(0, float, 64)
+  NATDIFF_CASE(0, float, 72)
+  NATDIFF_CASE(1, __nv_bfloat16, 64)
+  NATDIFF_CASE(1, __nv_bfloat16, 72)
+#undef NATDIFF_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -57,6 +57,7 @@ def natural_inference(
     generator: torch.Generator | None = None,
     prediction_type: str = "x0",
     model_dtype: torch.dtype | None = None,
+    step_inputs=None,
 ) -> torch.Tensor:
     """Run Natural Inference; returns the final state ``z`` in float32.
 
@@ -66,6 +67,11 @@ def natural_inference(
     ``init_noise``: ``[B, ...]`` prior sample (eps column 0).
     ``noises``: ``[n, B, ...]`` injected noises (columns 1..n); drawn from
     ``generator`` when omitted; unused for deterministic schedules.
+    ``step_inputs``: per-step model inputs, a tensor or nested dicts,
+    tuples and lists of tensors, each with a leading ``[n]`` axis (e.g.
+    :func:`..models.dit.dit_schedule_mods`).  When given, the model is
+    called as ``denoise_fn(x, t, aux_k)`` with step k's slice, as the JAX
+    engine does.
 
     Reference loop shape: ``src/ValidateNaturalInference.py:345-366``.
     """
@@ -100,12 +106,28 @@ def natural_inference(
     for k in range(n):
         t, alpha, sigma = sched.node[k]
         z_img = z.reshape(shape)
-        pred = denoise_fn(z_img.to(model_dtype), t)
+        if step_inputs is None:
+            pred = denoise_fn(z_img.to(model_dtype), t)
+        else:
+            pred = denoise_fn(z_img.to(model_dtype), t,
+                              _at_step(step_inputs, k))
         x0 = to_x0(pred, z_img, alpha, sigma, prediction_type)
         bufx[k] = x0.reshape(-1)       # in place: row k of the x0 buffer
         z = fused_weighted_sum(wx[k], we[k], bufx, bufe, k + 1,
                                min(eps_cols, k + 2))
     return z.reshape(shape)
+
+
+def _at_step(tree, k: int):
+    """Step ``k``'s slice of every tensor in ``tree`` (dicts, tuples and
+    lists of tensors), as ``jax.tree.map(lambda a: a[k], tree)``."""
+    if isinstance(tree, torch.Tensor):
+        return tree[k]
+    if isinstance(tree, dict):
+        return {key: _at_step(v, k) for key, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_at_step(v, k) for v in tree)
+    raise TypeError(f"step_inputs leaves must be tensors, got {type(tree)}")
 
 
 def natural_inference_reference(

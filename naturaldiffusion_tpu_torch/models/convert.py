@@ -1,4 +1,4 @@
-"""Carry the JAX package's NCSN++ weights into the port's model."""
+"""Carry the JAX package's weights (NCSN++, DiT) into the port's models."""
 
 from __future__ import annotations
 
@@ -18,11 +18,16 @@ def _flatten(tree, prefix, out):
 
 
 def load_jax_params(model, params, dtype: torch.dtype | None = None):
-    """Fill ``model`` (the port's ``NCSNpp``) from a flax param tree.
+    """Fill ``model`` (the port's ``NCSNpp`` or ``DiT``) from a flax param
+    tree.
 
-    ``params``: the ``["params"]`` tree of the JAX package's ``NCSNpp`` as
-    nested dicts of numpy arrays (``{"m0": {"kernel", "bias"}, "m3":
-    {"Conv_0": {...}, ...}, ...}``).  Names and layouts are the same on both
+    ``params``: the ``["params"]`` tree of the JAX package's model as
+    nested dicts of numpy arrays: NCSN++'s ``{"m0": {"kernel", "bias"},
+    "m3": {"Conv_0": {...}, ...}, ...}`` (matched against ``model.layers``),
+    or DiT's ``{"x_embedder_proj": {"kernel" [p,p,C,D] HWIO, "bias"},
+    "y_embedder_embedding_table": {"embedding"}, "blocks_0": {"attn":
+    {"qkv": ...}, ...}, ...}`` (matched against the model itself; its
+    LayerNorms have no params).  Names and layouts are the same on both
     sides, so each leaf is copied as it is.  With ``dtype`` the model is cast
     first (e.g. ``torch.bfloat16``).  Raises on a missing, extra or
     mis-shaped leaf.  Returns the model."""
@@ -30,7 +35,10 @@ def load_jax_params(model, params, dtype: torch.dtype | None = None):
     _flatten(params, "", flat)
     if dtype is not None:
         model.to(dtype)
-    own = dict(model.layers.named_parameters())
+    # NCSN++ keeps its walk in ``layers``; DiT's modules sit on the model
+    root = model.layers if isinstance(getattr(model, "layers", None),
+                                      torch.nn.Module) else model
+    own = dict(root.named_parameters())
     missing = sorted(own.keys() - flat.keys())
     extra = sorted(flat.keys() - own.keys())
     if missing or extra:

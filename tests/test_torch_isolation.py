@@ -34,6 +34,20 @@ run = make_sampler(model, registry.derive("ddim", 2), dtype=torch.float32,
                    device="cpu")
 out = run(torch.randn(1, 8, 8, 3))
 assert torch.isfinite(out).all()
+from naturaldiffusion_tpu_torch.apps import bench_dit, validate_dit
+from naturaldiffusion_tpu_torch.models.dit import DiT
+from naturaldiffusion_tpu_torch.ops.attention import mha
+from naturaldiffusion_tpu_torch.ops.qmatmul import matmul_wdq
+from naturaldiffusion_tpu_torch.ops.quant import quantize_weight
+dm = validate_dit.build_model(bench_dit.TOY, device="cpu").set_quant("w8")
+z0 = torch.randn(1, 8, 8, 4)
+dout = bench_dit.make_sampler(dm, registry.derive("ddim", 2))(
+    torch.cat([z0, z0]), torch.tensor([1, 10]))
+assert torch.isfinite(dout).all()
+q = torch.randn(1, 2, 16, 64)
+assert torch.isfinite(mha(q, q, q)).all()
+w_i8, s_w = quantize_weight(torch.randn(128, 128))
+assert torch.isfinite(matmul_wdq(torch.randn(16, 128), w_i8, s_w.flatten())).all()
 bad = sorted(k for k in sys.modules
              if k in ("jax", "naturaldiffusion_tpu")
              or k.startswith(("jax.", "jaxlib", "naturaldiffusion_tpu.")))
@@ -72,6 +86,17 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     from naturaldiffusion_tpu_torch.apps.cifar10_ni import main
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--num", "1"])
+
+
+def test_dit_entry_points_refuse_a_missing_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from naturaldiffusion_tpu_torch.apps import bench_dit, validate_dit
+    from naturaldiffusion_tpu_torch.models.dit import DiT
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DiT(bench_dit.TOY)
+    for main in (bench_dit.main, validate_dit.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(["--steps", "2"])
 
 
 @pytest.mark.parametrize("name", ["dpmsolver2s", "ode_heun", "deis_tab",
