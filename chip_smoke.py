@@ -30,6 +30,19 @@ printed as one line with its numbers and seconds as it ends:
            versions on the card, beside two controls.
   dit_validate  ``apps.validate_dit`` at full width (DDIM, 10 steps, f32) on
            the card: direct recursion against NI within its 1e-3 check.
+  ve_kernels    kernels K4 (halo-tiled conv, serving K5 too) and K6
+           (GroupNorm) against their plain versions at every shape one
+           batch-4 bf16 forward of the full-width CelebA-HQ 256 VE NCSN++
+           gives them, f32 and bf16, then timed as in ``kernels``.
+  ve_forward    one full-width VE NCSN++ forward at one image in float32:
+           the card against the CPU; then one level-0 resblock in its
+           unfused form (the path's) against its fused form, timed.
+  ve_slice      the VE path: ``get_pc_sampler`` (reverse diffusion +
+           Langevin, snr 0.075) over the full-width model in bf16 at batch
+           4, with N = 10 steps instead of the config's 2000; launch
+           counts, img/s, MFU, the card's busy share, and the samples
+           against an f32 run of the plain versions on the card beside two
+           controls, and the kernels in f32 against the same run.
 
 Any failure raises and exits non-zero.  The last two lines are the kernels
 JSON and ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -75,6 +88,28 @@ SLICE_TOL = 2e-2
 # the same run in f32 on the card: f32 forward differences (~1e-6) grow by
 # 1/alpha (~160 at t=999) in eps -> x0; relative L2
 SLICE_F32_TOL = 1e-3
+# images per second of the CIFAR slice before this script's phases ran K6
+# on it (PERF.md section 6: 69.05 on an NVIDIA H100 80GB HBM3 at 700 W)
+CIFAR_IMG_PER_S_BEFORE_K6 = 69.05
+
+VE_CONFIG, VE_BATCH, VE_STEPS = "ve/celebahq_256_ncsnpp_continuous", 4, 10
+# XLA's cost analysis of the JAX package's forward of this model at one
+# image: 529 GFLOP
+VE_FLOP_PER_IMAGE = 529e9
+# full-width VE forward, f32 card vs f32 CPU, relative L2: 49 resblocks of
+# f32 sums in other orders, as FORWARD_TOL
+VE_FORWARD_TOL = 1e-4
+# N = 10 PC sampling, bf16 kernels vs f32 plain versions on the card,
+# relative L2 of the samples: a sound run read 1.69e-2 on an H100, and so
+# did the plain versions in bf16 (1.68e-2).  The random-weight score moves
+# the state by sigma x its output at every step, so the samples carry the
+# forward's bf16 error whole; the time 1 % off read only 1.83e-2, so this
+# check cannot see a small conditioning fault, and the f32 check below is
+# the tight one.  3e-2 is 1.8x the sound reading
+VE_SLICE_TOL = 3e-2
+# the same sampling with the kernels in f32 against the f32 plain versions:
+# the f32 forward agrees to ~3e-6 (ve_forward); relative L2
+VE_SLICE_F32_TOL = 1e-3
 
 DIT_MODEL, DIT_STEPS, DIT_ACC_STEPS, DIT_CFG_SCALE = "DiT-XL/2", 50, 10, 4.0
 # full-width DiT-XL/2 forward, f32 card vs f32 CPU, relative L2: K9's f32
@@ -212,27 +247,42 @@ def phase_build():
     secs = _cuda.build()
     ptxas = {}
     for name in secs:
+        # the distinct register / shared-memory / spill lines of the source
         log = _cuda.build_dir() / f"{name}.log"
-        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
-                       if "registers" in ln][:4] if log.exists() else []
+        lines = log.read_text().splitlines() if log.exists() else []
+        ptxas[name] = sorted({ln.split(":", 1)[-1].strip() for ln in lines
+                              if "registers" in ln or "spill" in ln})
     phase("build", t, nvcc_seconds=secs, ptxas=ptxas)
 
 
-def conv_signatures(model, x, t):
-    """Record every 3x3-conv call of one forward: the shapes and options
-    the main path gives kernels K2 and K3, with how often each occurs."""
+def kernel_signatures(model, x, t):
+    """Record every kernel call of one forward, with how often each occurs:
+    3x3 convs as ``(kind, (x shape, w shape, pre, skip, emit_stats))`` with
+    kind ``conv3x3`` (K2), ``conv3x3_tiled`` (K4) or ``conv3x3_gn`` (K3),
+    standalone GroupNorms (K6) as ``("group_norm", (x shape, groups, act,
+    extra-bias rows or None))``."""
     import torch
-    from naturaldiffusion_tpu_torch.models.layers import PConv3x3
+    from naturaldiffusion_tpu_torch.models.layers import GroupNorm, PConv3x3
+    from naturaldiffusion_tpu_torch.ops import conv3x3 as C
     seen = {}
 
-    def hook(mod, args, kwargs, out):
+    def conv_hook(mod, args, kwargs, out):
         sig = (tuple(args[0].shape), tuple(mod.kernel.shape),
                kwargs.get("pre") is not None, kwargs.get("skip") is not None,
                bool(kwargs.get("emit_stats", False)))
-        seen[sig] = seen.get(sig, 0) + 1
+        kind = ("conv3x3_gn" if any(sig[2:]) else "conv3x3_tiled"
+                if C.large_map(args[0], mod.kernel.shape[3]) else "conv3x3")
+        seen[kind, sig] = seen.get((kind, sig), 0) + 1
 
-    hooks = [m.register_forward_hook(hook, with_kwargs=True)
-             for m in model.modules() if isinstance(m, PConv3x3)]
+    def gn_hook(mod, args, kwargs, out):
+        eb = kwargs.get("extra_bias")
+        sig = (tuple(args[0].shape), mod.num_groups, mod.act,
+               None if eb is None else eb.shape[0])
+        seen["group_norm", sig] = seen.get(("group_norm", sig), 0) + 1
+
+    hooks = [m.register_forward_hook(
+        conv_hook if isinstance(m, PConv3x3) else gn_hook, with_kwargs=True)
+        for m in model.modules() if isinstance(m, (PConv3x3, GroupNorm))]
     with torch.no_grad():
         model(x, t)
     for h in hooks:
@@ -315,7 +365,12 @@ def phase_kernels(model_bf16, details):
     x = torch.randn((BATCH, 32, 32, 3), generator=gen,
                     device="cuda").to(torch.bfloat16)
     tc = torch.full((BATCH,), 500.0, device="cuda")
-    sigs = conv_signatures(model_bf16, x, tc)
+    allsigs = kernel_signatures(model_bf16, x, tc)
+    sigs = {sig: n for (kind, sig), n in allsigs.items()
+            if kind in ("conv3x3", "conv3x3_gn")}
+    n_k6 = sum(n for (kind, _), n in allsigs.items() if kind == "group_norm")
+    if any(kind == "conv3x3_tiled" for kind, _ in allsigs):
+        raise AssertionError("the CIFAR forward reached the halo-tiled conv")
     n_gn = sum(n for s, n in sigs.items() if any(s[2:]))
     n_plain = sum(n for s, n in sigs.items() if not any(s[2:]))
     # every option combination at the largest and the smallest map, so the
@@ -434,7 +489,7 @@ def phase_kernels(model_bf16, details):
               achieved=rate[k["name"]])
               for k in out},
           note="conv times: sum over one batch-64 forward's launches, bf16")
-    return out, n_plain, n_gn
+    return out, n_plain, n_gn, n_k6
 
 
 def phase_forward(model_f32):
@@ -458,6 +513,25 @@ def phase_forward(model_f32):
           out_abs_max=float(want.abs().max()))
 
 
+@contextlib.contextmanager
+def plain_convs_and_norms():
+    """Within the block, the conv kernels K2, K3 and K4 and the GroupNorm
+    kernel K6 are replaced by their plain PyTorch versions (also for CUDA
+    tensors)."""
+    from naturaldiffusion_tpu_torch.ops import conv3x3 as C
+    from naturaldiffusion_tpu_torch.ops import group_norm as G
+    saved = (C.conv3x3, C.conv3x3_tiled, C.conv3x3_gn, G.fused_group_norm)
+    C.conv3x3 = C.conv3x3_tiled = (
+        lambda x, w, b=None: C.conv3x3_gn_reference(x, w, b))
+    C.conv3x3_gn = C.conv3x3_gn_reference
+    G.fused_group_norm = G.fused_group_norm_reference
+    try:
+        yield
+    finally:
+        (C.conv3x3, C.conv3x3_tiled, C.conv3x3_gn,
+         G.fused_group_norm) = saved
+
+
 def slice_controls(model_f32, matrix, init, noises, want):
     """Two readings beside the slice check, on its first 2 samples: the
     same bf16 run through the plain versions on the card (what bf16 alone
@@ -466,20 +540,18 @@ def slice_controls(model_f32, matrix, init, noises, want):
     import importlib
     import torch
     from naturaldiffusion_tpu_torch.apps.cifar10_ni import make_sampler
-    from naturaldiffusion_tpu_torch.ops import conv3x3 as C
     from naturaldiffusion_tpu_torch.ops import weighted_sum as WS
     ni = importlib.import_module("naturaldiffusion_tpu_torch.engine.ni")
 
-    saved = (C.conv3x3, C.conv3x3_gn, ni.fused_weighted_sum)
-    C.conv3x3 = lambda x, w, b=None: C.conv3x3_gn_reference(x, w, b)
-    C.conv3x3_gn = C.conv3x3_gn_reference
+    saved = ni.fused_weighted_sum
     ni.fused_weighted_sum = WS.fused_weighted_sum_reference
     try:
-        plain = make_sampler(model_f32, matrix, micro=BATCH,
-                             dtype=torch.bfloat16, device="cuda")(
-            init, noises=noises)
+        with plain_convs_and_norms():
+            plain = make_sampler(model_f32, matrix, micro=BATCH,
+                                 dtype=torch.bfloat16, device="cuda")(
+                init, noises=noises)
     finally:
-        C.conv3x3, C.conv3x3_gn, ni.fused_weighted_sum = saved
+        ni.fused_weighted_sum = saved
 
     class TimeOff(torch.nn.Module):
         def __init__(self, inner):
@@ -495,11 +567,12 @@ def slice_controls(model_f32, matrix, init, noises, want):
     return rel_l2(plain, want), rel_l2(fault, want)
 
 
-def phase_slice(model_f32, n_plain, n_gn, smi):
+def phase_slice(model_f32, n_plain, n_gn, n_k6, smi):
     import torch
     from naturaldiffusion_tpu_torch.apps.cifar10_ni import make_sampler
     from naturaldiffusion_tpu_torch.coeffs import registry
     from naturaldiffusion_tpu_torch.ops import conv3x3 as C
+    from naturaldiffusion_tpu_torch.ops import group_norm as G
     from naturaldiffusion_tpu_torch.ops import weighted_sum as WS
 
     t = time.perf_counter()
@@ -512,7 +585,8 @@ def phase_slice(model_f32, n_plain, n_gn, smi):
                          device="cuda")
     run(init, noises=noises)                     # warm-up
     torch.cuda.synchronize()
-    counters = (WS.fused_weighted_sum, C.conv3x3, C.conv3x3_gn)
+    counters = (WS.fused_weighted_sum, C.conv3x3, C.conv3x3_gn,
+                C.conv3x3_tiled, G.fused_group_norm)
     for f in counters:
         f.launches = 0
     t_run = time.perf_counter()
@@ -521,10 +595,11 @@ def phase_slice(model_f32, n_plain, n_gn, smi):
     wall = time.perf_counter() - t_run
     launches = {f.__name__: f.launches for f in counters}
     expect = {"fused_weighted_sum": STEPS, "conv3x3": STEPS * n_plain,
-              "conv3x3_gn": STEPS * n_gn}
-    if launches != expect or n_gn != 88 or n_plain != 2:
-        raise AssertionError(f"launches {launches} != {expect} "
-                             f"(per forward: {n_gn} K3, {n_plain} K2)")
+              "conv3x3_gn": STEPS * n_gn, "conv3x3_tiled": 0,
+              "fused_group_norm": STEPS * n_k6}
+    if launches != expect or (n_gn, n_plain, n_k6) != (88, 2, 13):
+        raise AssertionError(f"launches {launches} != {expect} (per "
+                             f"forward: {n_gn} K3, {n_plain} K2, {n_k6} K6)")
     if not (torch.isfinite(out).all() and out.shape == init.shape):
         raise AssertionError("slice: non-finite or misshapen samples")
 
@@ -544,6 +619,7 @@ def phase_slice(model_f32, n_plain, n_gn, smi):
                              f"{SLICE_TOL:g}), {err32:.3e} (f32, tol "
                              f"{SLICE_F32_TOL:g})")
     phase("slice", t, img_per_s=BATCH / wall, wall_s=wall, card=smi,
+          img_per_s_before_k6=CIFAR_IMG_PER_S_BEFORE_K6,
           launches=launches, rel_l2_bf16_vs_cpu_f32=err, tol=SLICE_TOL,
           rel_l2_f32_vs_cpu_f32=err32, tol_f32=SLICE_F32_TOL,
           control_plain_bf16_rel_l2=ctl_plain,
@@ -636,14 +712,19 @@ def phase_dit_kernels(details):
 
     # K9: the model's strided views of one qkv tensor at t = 256, and
     # contiguous [B, H, T, D] at the unaligned t = 250, there also at the
-    # head dim of 64 that MMDiT will use
+    # head dim of 64 that MMDiT will use and at 32 and 16 (the small DiTs
+    # of the apps)
     k9 = {}
     for t, hd, dtype, tol in ((tokens, dh, torch.float32, F32_TOL),
                               (tokens, dh, torch.bfloat16, BF16_TOL),
                               (250, dh, torch.float32, F32_TOL),
                               (250, dh, torch.bfloat16, BF16_TOL),
                               (250, 64, torch.float32, F32_TOL),
-                              (250, 64, torch.bfloat16, BF16_TOL)):
+                              (250, 64, torch.bfloat16, BF16_TOL),
+                              (250, 32, torch.float32, F32_TOL),
+                              (250, 32, torch.bfloat16, BF16_TOL),
+                              (250, 16, torch.float32, F32_TOL),
+                              (250, 16, torch.bfloat16, BF16_TOL)):
         qkv = rn(2, t, 3, h, hd).to(dtype)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         if t != tokens:
@@ -729,7 +810,9 @@ def phase_dit_kernels(details):
              max_rel_err=max(e[1] for e in k9.values()),
              **{f: depth * k9_time[f] for f in ("ms", "plain_ms",
                                                 "library_ms", "bound_ms")},
-             bound_by=k9_bound_by),
+             bound_by=k9_bound_by,
+             head_dims_checked=sorted({int(k.split("_d")[1].split("_")[0])
+                                       for k in k9})),
         dict(name="qmatmul", route="cuda",
              source="naturaldiffusion_tpu_torch/csrc/qmatmul.cu",
              replaces="naturaldiffusion_tpu/ops/qmatmul.py:48",
@@ -962,6 +1045,339 @@ def phase_dit_validate():
     phase("dit_validate", t0, model=DIT_MODEL, alg="ddim",
           steps=DIT_ACC_STEPS, rc=rc)
 
+# ------------------------------------------------------------------ VE path
+
+def gn_inputs(torch, sig, dtype, gen):
+    """Random inputs of a K6 signature: activations with a mean offset (the
+    fast variance's hard case), scale near 1, small biases."""
+    (b, h, w, c), _, _, eb_rows = sig
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = (1.0 + rn(b, h, w, c)).to(dtype)
+    scale, bias = 1.0 + 0.1 * rn(c), 0.1 * rn(c)
+    eb = None if eb_rows is None else (0.5 * rn(eb_rows, c)).to(dtype)
+    return x, scale, bias, eb
+
+
+def phase_ve_kernels(model_bf16, details):
+    """K4 and K6 at every shape of one batch-4 bf16 forward of the
+    full-width VE model (and K4 at the three shapes named for it), against
+    their plain versions in f32 and bf16, then timed in bf16.  Returns the
+    kernels' rows and the forward's kernel signatures."""
+    import torch
+    import torch.nn.functional as F
+    from naturaldiffusion_tpu_torch.ops import conv3x3 as C
+    from naturaldiffusion_tpu_torch.ops import group_norm as G
+
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    x = torch.rand((VE_BATCH, 256, 256, 3), generator=gen,
+                   device="cuda").to(torch.bfloat16)
+    sig_t = torch.full((VE_BATCH,), 2.0, device="cuda")
+    sigs = kernel_signatures(model_bf16, x, sig_t)
+    named = [((VE_BATCH, hw, hw, ci), (3, 3, ci, co), False, False, False)
+             for hw, ci, co in ((256, 128, 128), (256, 256, 128),
+                                (64, 512, 256))]
+    k4_sigs = [sg for (kind, sg) in sigs if kind == "conv3x3_tiled"]
+    if any(sg not in k4_sigs for sg in named):
+        raise AssertionError(f"the forward's K4 shapes {k4_sigs} miss one "
+                             f"of {named}")
+    rows = {"conv3x3_tiled": [], "group_norm": []}
+    for sg in k4_sigs:
+        row = dict(sig=repr(sg), per_forward=sigs["conv3x3_tiled", sg])
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16,
+                                                      BF16_TOL)):
+            xx, ww, bb, _, _ = conv_inputs(torch, sg, dtype, gen)
+            with torch.backends.cudnn.flags(enabled=False):
+                want = C.conv3x3_gn_reference(xx, ww, bb)
+            got = C.conv3x3_tiled(xx, ww, bb)
+            dn = str(dtype)
+            row[f"err_{dn}"], row[f"rel_err_{dn}"] = check_close(
+                f"K4 conv3x3_tiled {sg} {dn}", got, want, tol)
+            if dtype == torch.bfloat16:
+                xcl = xx.permute(0, 3, 1, 2)
+                wcl = ww.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                row.update(
+                    ms=timer(lambda: C.conv3x3_tiled(xx, ww, bb)),
+                    plain_ms=timer(lambda: C.conv3x3_gn_reference(xx, ww,
+                                                                  bb)),
+                    library_ms=timer(lambda: F.conv2d(xcl, wcl, bb,
+                                                      padding=1)))
+                (row["flops"], row["bytes"], row["bound_ms"],
+                 row["bound_by"]) = conv_cost(sg, 2, dn)
+        rows["conv3x3_tiled"].append(row)
+    for (kind, sg), mult in sigs.items():
+        if kind != "group_norm":
+            continue
+        (b, h, w, c), groups, act, eb_rows = sg
+        row = dict(sig=repr(sg), per_forward=mult)
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16,
+                                                      BF16_TOL)):
+            xx, sc, bi, eb = gn_inputs(torch, sg, dtype, gen)
+            kw = dict(act=act, extra_bias=eb)
+            got = G.fused_group_norm(xx, sc, bi, groups, **kw)
+            want = G.fused_group_norm_reference(xx, sc, bi, groups, **kw)
+            dn = str(dtype)
+            row[f"err_{dn}"], row[f"rel_err_{dn}"] = check_close(
+                f"K6 group_norm {sg} {dn}", got, want, tol)
+            if dtype == torch.bfloat16:
+                xn = xx.permute(0, 3, 1, 2)
+                sc16, bi16 = sc.to(dtype), bi.to(dtype)
+                nbytes = 2 * 2 * b * h * w * c + 4 * 2 * c + (
+                    0 if eb is None else 2 * eb.numel())
+                row.update(
+                    ms=timer(lambda: G.fused_group_norm(xx, sc, bi, groups,
+                                                        **kw)),
+                    plain_ms=timer(lambda: G.fused_group_norm_reference(
+                        xx, sc, bi, groups, **kw)),
+                    library_ms=timer(lambda: F.group_norm(xn, groups, sc16,
+                                                          bi16, 1e-6)),
+                    bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                    bound_by="bytes")
+        rows["group_norm"].append(row)
+    details["ve_kernels"] = rows
+
+    # host cost of one launch through each wrapper, at small shapes
+    sg4 = ((1, 64, 64, 128), (3, 3, 128, 128), False, False, False)
+    xx, ww, bb, _, _ = conv_inputs(torch, sg4, torch.bfloat16, gen)
+    gx, gs, gb, geb = gn_inputs(torch, ((1, 16, 16, 128), 32, "silu", 1),
+                                torch.bfloat16, gen)
+    host = {"conv3x3_tiled": host_us(torch, lambda: C.conv3x3_tiled(
+        xx, ww, bb)), "group_norm": host_us(torch, lambda: G.fused_group_norm(
+            gx, gs, gb, 32, act="silu", extra_bias=geb))}
+
+    meta = {"conv3x3_tiled": (
+        "naturaldiffusion_tpu/ops/conv3x3.py:368",
+        "naturaldiffusion_tpu/ops/conv3x3.py:472",
+        "naturaldiffusion_tpu_torch/csrc/conv3x3.cu"),
+        "group_norm": ("naturaldiffusion_tpu/ops/group_norm.py:76", None,
+                       "naturaldiffusion_tpu_torch/csrc/group_norm.cu")}
+    out = []
+    for kind, (replaces, also, source) in meta.items():
+        tot = {k: sum(r[k] * r["per_forward"] for r in rows[kind])
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bytes")}
+        flops = sum(r.get("flops", 0) * r["per_forward"] for r in rows[kind])
+        row = dict(
+            name=kind, route="cuda", source=source, replaces=replaces,
+            max_abs_err=max(v for r in rows[kind] for k, v in r.items()
+                            if k.startswith("err_")),
+            max_rel_err=max(v for r in rows[kind] for k, v in r.items()
+                            if k.startswith("rel_err_")),
+            ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+            bound_by=("operations" if flops / PEAK_FLOPS["torch.bfloat16"]
+                      >= tot["bytes"] / HBM_BYTES_PER_S else "bytes"),
+            library_ms=tot["library_ms"])
+        if also:
+            row["also_replaces"] = also
+        out.append(row)
+        details[f"ve_{kind}_per_forward"] = dict(
+            launches=sum(r["per_forward"] for r in rows[kind]), flops=flops,
+            **tot)
+    for kind in rows:
+        for r in rows[kind]:
+            print(f"  {kind} {r['sig']} x{r['per_forward']}: {r['ms']:.4f} "
+                  f"ms, plain {r['plain_ms']:.4f}, library "
+                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                  f"({r['bound_by']})", flush=True)
+    per_fwd = {k: sum(n for (kind, _), n in sigs.items() if kind == k)
+               for k in ("conv3x3", "conv3x3_gn", "conv3x3_tiled",
+                         "group_norm")}
+    phase("ve_kernels", t0, config=VE_CONFIG, batch=VE_BATCH,
+          checks={k: len(v) for k, v in rows.items()},
+          tolerances=dict(f32=F32_TOL, bf16=BF16_TOL),
+          per_forward_launches=per_fwd,
+          host_us_per_launch={k: round(v, 2) for k, v in host.items()},
+          kernels={k["name"]: dict(
+              {f: round(k[f], 4) for f in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms")},
+              max_abs_err=k["max_abs_err"], max_rel_err=k["max_rel_err"])
+              for k in out},
+          k4_tflops=details["ve_conv3x3_tiled_per_forward"]["flops"]
+          / details["ve_conv3x3_tiled_per_forward"]["ms"] / 1e9,
+          note="ms: sum over one batch-4 bf16 forward's launches; library: "
+               "F.conv2d channels-last with cuDNN, F.group_norm on the NCHW "
+               "view (without the extra bias and the SiLU)")
+    return out, sigs
+
+
+def ve_model(seed):
+    from naturaldiffusion_tpu_torch import configs
+    from naturaldiffusion_tpu_torch.models.ncsnpp import NCSNpp
+    cfg = configs.get_config(VE_CONFIG)
+    return cfg, randomize_(NCSNpp(cfg.model, device="cpu"), seed).eval()
+
+
+def phase_ve_forward(model_f32):
+    """The full-width VE forward at one image, f32, card against CPU; then a
+    level-0 resblock at the path's shape in its unfused and fused forms."""
+    import torch
+    from naturaldiffusion_tpu_torch.models.layers import ResnetBlockBigGANpp
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 22)
+    x = torch.rand((1, 256, 256, 3), generator=gen)
+    sigma = torch.tensor([1.87])
+    card = copy.deepcopy(model_f32).to("cuda")
+    with torch.no_grad():
+        got = card(x.cuda(), sigma.cuda())
+        torch.cuda.synchronize()
+        tc = time.perf_counter()
+        want = model_f32(x, sigma)
+        cpu_s = time.perf_counter() - tc
+    err = rel_l2(got, want)
+    if not (torch.isfinite(got).all() and err <= VE_FORWARD_TOL
+            and got.shape == (1, 256, 256, 3)):
+        raise AssertionError(f"ve_forward: rel L2 {err:.3e} > "
+                             f"{VE_FORWARD_TOL:g} or non-finite")
+    del card
+
+    # the first resblock: 256^2, 128 -> 128, unfused on the path
+    blk = next(m for m in model_f32.layers.values()
+               if isinstance(m, ResnetBlockBigGANpp))
+    blk = copy.deepcopy(blk).to(device="cuda", dtype=torch.bfloat16)
+    g2 = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    h = torch.randn((VE_BATCH, 256, 256, 128), generator=g2,
+                    device="cuda").to(torch.bfloat16)
+    temb = torch.randn((VE_BATCH, 512), generator=g2,
+                       device="cuda").to(torch.bfloat16)
+    form = blk.route(h)
+    if form != "unfused":
+        raise AssertionError(f"level-0 resblock routed {form}")
+    timer = Timer(torch)
+    with torch.no_grad():
+        unfused = blk(h, temb)
+        t_unfused = timer(lambda: blk(h, temb))
+        blk.route = lambda x: "fused"
+        fused = blk(h, temb)
+        t_fused = timer(lambda: blk(h, temb))
+    blk_err = rel_l2(fused, unfused)
+    if blk_err > BF16_TOL:
+        raise AssertionError(f"level-0 resblock: fused vs unfused rel L2 "
+                             f"{blk_err:.3e}")
+    phase("ve_forward", t0, config=VE_CONFIG, rel_l2=err, tol=VE_FORWARD_TOL,
+          cpu_seconds=cpu_s,
+          params=sum(p.numel() for p in model_f32.parameters()),
+          out_abs_max=float(want.abs().max()),
+          level0_block=dict(shape=list(h.shape), unfused_ms=t_unfused,
+                            fused_ms=t_fused, rel_l2_fused_vs_unfused=blk_err))
+
+
+def ve_counters():
+    from naturaldiffusion_tpu_torch.ops import conv3x3 as C
+    from naturaldiffusion_tpu_torch.ops import group_norm as G
+    return {"conv3x3": C.conv3x3, "conv3x3_gn": C.conv3x3_gn,
+            "conv3x3_tiled": C.conv3x3_tiled,
+            "fused_group_norm": G.fused_group_norm}
+
+
+def phase_ve_slice(cfg, model_f32, sigs, smi):
+    """PC sampling over the full-width VE model in bf16 at batch 4 through
+    ``get_pc_sampler``, N = VE_STEPS; then the accuracy check with its two
+    controls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from naturaldiffusion_tpu_torch.samplers.pc import get_pc_sampler
+    from naturaldiffusion_tpu_torch.scaler import get_inverse_scaler
+    from naturaldiffusion_tpu_torch.sde import VESDE, get_score_fn
+
+    t0 = time.perf_counter()
+    model = copy.deepcopy(model_f32).to(device="cuda", dtype=torch.bfloat16)
+    model32 = copy.deepcopy(model_f32).to("cuda")
+    sde = VESDE(sigma_min=cfg.sde.sigma_min, sigma_max=cfg.sde.sigma_max,
+                N=VE_STEPS)
+    shape = (VE_BATCH, 256, 256, 3)
+    pc_kw = dict(predictor=cfg.sampling.predictor,
+                 corrector=cfg.sampling.corrector, snr=cfg.sampling.snr,
+                 n_steps=cfg.sampling.n_steps_each, device="cuda")
+
+    def sampler(net, dtype, time_scale=1.0):
+        score = get_score_fn(sde, lambda x, s: net(x.to(dtype),
+                                                   s * time_scale))
+        return get_pc_sampler(sde, score, shape, **pc_kw)
+
+    def seeded():
+        return torch.Generator(device="cuda").manual_seed(SEED + 24)
+
+    run = sampler(model, torch.bfloat16)
+    xs = torch.rand(shape, generator=seeded(), device="cuda")
+    with torch.no_grad():
+        model(xs.to(torch.bfloat16), torch.full((VE_BATCH,), 2.0,
+                                                device="cuda"))  # warm-up
+    torch.cuda.synchronize()
+    counters = ve_counters()
+    zero_counts(counters)
+    tr = time.perf_counter()
+    out, nfe = run(seeded())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tr
+    counts = read_counts(counters)
+    per_fwd = {"conv3x3": 0, "conv3x3_gn": 0, "conv3x3_tiled": 0,
+               "fused_group_norm": 0}
+    for (kind, _), n in sigs.items():
+        per_fwd["fused_group_norm" if kind == "group_norm" else kind] += n
+    expect = {k: nfe * v for k, v in per_fwd.items()}
+    if counts != expect or nfe != 2 * VE_STEPS:
+        raise AssertionError(f"ve_slice: launches {counts} != {expect}")
+    img = get_inverse_scaler(cfg.model.centered)(out)
+    if not (torch.isfinite(img).all() and img.shape == shape):
+        raise AssertionError("ve_slice: non-finite or misshapen samples")
+
+    # device-busy share of one forward, from the profiler
+    s_lab = torch.full((VE_BATCH,), 2.0, device="cuda")
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        tw = time.perf_counter()
+        model(xs.to(torch.bfloat16), s_lab)
+        torch.cuda.synchronize()
+        fwd_wall = time.perf_counter() - tw
+    kern = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    top = [(e.key[:60], e.count, e.self_device_time_total / 1e3)
+           for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]]
+
+    # accuracy: the same seeded run in f32 through the plain versions on
+    # the card (TF32 off), against the kernels in bf16; two controls
+    with plain_convs_and_norms():
+        want, _ = sampler(model32, torch.float32)(seeded())
+        ctl_plain = rel_l2(sampler(model, torch.bfloat16)(seeded())[0], want)
+    err = rel_l2(out, want)
+    err32 = rel_l2(sampler(model32, torch.float32)(seeded())[0], want)
+    ctl_fault = rel_l2(sampler(model, torch.bfloat16, 1.01)(seeded())[0],
+                       want)
+    fwd_s = wall / nfe
+    phase("ve_slice", t0, config=VE_CONFIG, batch=VE_BATCH, steps=VE_STEPS,
+          steps_in_config=cfg.sde.num_scales,
+          reduction=f"N = {VE_STEPS} PC steps instead of "
+                    f"{cfg.sde.num_scales}", card=smi,
+          img_per_s=VE_BATCH / wall, wall_s=wall, nfe=nfe,
+          sec_per_forward=fwd_s,
+          computed_sec_per_image_at_config_steps=(
+              wall / VE_BATCH * cfg.sde.num_scales / VE_STEPS),
+          mfu=VE_FLOP_PER_IMAGE * VE_BATCH * nfe / wall
+          / PEAK_FLOPS["torch.bfloat16"],
+          launches=counts, launches_per_forward=per_fwd,
+          profiled_forward=dict(device_ms=dev_ms,
+                                wall_ms=fwd_wall * 1e3,
+                                busy_share=dev_ms / (fwd_wall * 1e3),
+                                top=top),
+          rel_l2_bf16_vs_plain_f32=err, tol=VE_SLICE_TOL,
+          rel_l2_f32_vs_plain_f32=err32, tol_f32=VE_SLICE_F32_TOL,
+          control_plain_bf16_rel_l2=ctl_plain,
+          control_time_1pct_off_rel_l2=ctl_fault,
+          sample_abs_max=float(out.abs().max()))
+    if err > VE_SLICE_TOL or err32 > VE_SLICE_F32_TOL:
+        raise AssertionError(f"ve_slice: rel L2 {err:.3e} (bf16, tol "
+                             f"{VE_SLICE_TOL:g}), {err32:.3e} (f32, tol "
+                             f"{VE_SLICE_F32_TOL:g})")
+    del model, model32
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -990,10 +1406,10 @@ def main(argv=None) -> int:
                        SEED).eval()
     details = {}
     model_bf16 = copy.deepcopy(model).to(device="cuda", dtype=torch.bfloat16)
-    kernels, n_plain, n_gn = phase_kernels(model_bf16, details)
+    kernels, n_plain, n_gn, n_k6 = phase_kernels(model_bf16, details)
     del model_bf16
     phase_forward(model)
-    launches, ips = phase_slice(model, n_plain, n_gn, smi)
+    launches, ips = phase_slice(model, n_plain, n_gn, n_k6, smi)
     del model
 
     from naturaldiffusion_tpu_torch.models.dit import DIT_CONFIGS, DiT
@@ -1005,25 +1421,43 @@ def main(argv=None) -> int:
     del dit32
     phase_dit_validate()
 
+    ve_cfg, ve32 = ve_model(SEED + 20)
+    ve16 = copy.deepcopy(ve32).to(device="cuda", dtype=torch.bfloat16)
+    ve_kernels, ve_sigs = phase_ve_kernels(ve16, details)
+    kernels += ve_kernels
+    del ve16
+    phase_ve_forward(ve32)
+    ve_launches = phase_ve_slice(ve_cfg, ve32, ve_sigs, smi)
+    del ve32
+
     by_path = {"cifar_slice": launches,
                "dit_slice": dit_runs["float"]["launches"],
-               "dit_slice_w8": dit_runs["w8"]["launches"]}
+               "dit_slice_w8": dit_runs["w8"]["launches"],
+               "ve_slice": ve_launches}
     # each kernel's count from the path that exercises it: K1-K3 the
-    # CIFAR slice, K9 the DiT slice, K7 the DiT slice under w8
+    # CIFAR slice, K9 the DiT slice, K7 the DiT slice under w8, K4 and K6
+    # the VE slice
     main_path = {"weighted_sum": ("cifar_slice", "fused_weighted_sum"),
                  "conv3x3": ("cifar_slice", "conv3x3"),
                  "conv3x3_gn": ("cifar_slice", "conv3x3_gn"),
                  "flash_attention": ("dit_slice", "flash_attention"),
-                 "qmatmul": ("dit_slice_w8", "matmul_wdq")}
+                 "qmatmul": ("dit_slice_w8", "matmul_wdq"),
+                 "conv3x3_tiled": ("ve_slice", "conv3x3_tiled"),
+                 "group_norm": ("ve_slice", "fused_group_norm")}
     for k in kernels:
         path, fn = main_path[k["name"]]
         k["launches"] = by_path[path][fn]
         k["launches_by_path"] = {p: c[fn] for p, c in by_path.items()
                                  if c.get(fn)}
+        if not k["launches"]:
+            raise AssertionError(f"{k['name']} was not launched on {path}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path")
-    kernels = [{k: kern[k] for k in keys} for kern in kernels]
+    extras = ("also_replaces", "head_dims_checked")
+    kernels = [dict({k: kern[k] for k in keys},
+                    **{k: kern[k] for k in extras if k in kern})
+               for kern in kernels]
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(dict(card=smi, img_per_s=ips, dit=dit_runs,

@@ -37,7 +37,9 @@ from ..models.dit import (DIT_CONFIGS, DiT, DiTConfig, dit_schedule_mods,
                           forward_with_cfg)
 
 H100_BF16_PEAK = 989e12     # dense, NVIDIA's data sheet (SXM part)
-TOY = DiTConfig(input_size=8, patch_size=2, in_channels=4, hidden_size=128,
+# the JAX app's --toy DiT (``naturaldiffusion_tpu/apps/bench_dit.py:53``):
+# 2 heads of 32
+TOY = DiTConfig(input_size=8, patch_size=2, in_channels=4, hidden_size=64,
                 depth=2, num_heads=2, num_classes=10)
 
 

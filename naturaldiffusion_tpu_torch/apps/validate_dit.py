@@ -29,8 +29,10 @@ from ..engine import NISchedule, natural_inference
 from ..models.dit import DIT_CONFIGS, DiT, DiTConfig, forward_with_cfg
 from ..schedules import DiscreteVP
 
-SMALL = DiTConfig(input_size=8, patch_size=2, in_channels=4, hidden_size=128,
-                  depth=2, num_heads=2, num_classes=10)
+# the JAX app's --small DiT (``naturaldiffusion_tpu/apps/validate_dit.py:31``):
+# 4 heads of 16
+SMALL = DiTConfig(input_size=8, patch_size=2, in_channels=4, hidden_size=64,
+                  depth=2, num_heads=4, num_classes=10)
 
 
 @torch.no_grad()

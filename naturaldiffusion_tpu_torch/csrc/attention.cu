@@ -18,8 +18,9 @@
 // updates its rows' running max and sum (online softmax in f32, exp2 with
 // the scale folded in), rescales its f32 output accumulator and adds P V,
 // P taken from the S registers without a trip through memory.  The head
-// dim D is a template parameter (64 for MMDiT, 72 for DiT).  72 is not a
-// multiple of the mma's k of 16, so the Q K^T reduction runs over D
+// dim D is a template parameter: 64 (MMDiT), 72 (DiT-XL/2), and 16 and 32
+// (the small DiTs of the JAX package's apps).  72 is not a multiple of the
+// mma's k of 16, so the Q K^T reduction runs over D
 // rounded up to 16 with zero columns (80 for 72); P V's n dimension is D in
 // tiles of 8 (72 = 9 x 8).
 //
@@ -370,7 +371,7 @@ const char* natdiff_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = float32, 1 = bfloat16; d: 64 or 72.  q, k, v share the
+// dtype: 0 = float32, 1 = bfloat16; d: 16, 32, 64 or 72.  q, k, v share the
 // element strides s_b, s_h, s_t (batch, head, token; the head dim is
 // contiguous), o has its own; every row start is 16-byte aligned (checked
 // by the Python wrapper).  scale_log2 = sm_scale * log2(e).
@@ -389,8 +390,12 @@ int natdiff_flash_attention(int dtype, int d, const void* q, const void* k,
                    Tlen, scale_log2);                                         \
     return (int)cudaGetLastError();                                           \
   }
+  NATDIFF_CASE(0, float, 16)
+  NATDIFF_CASE(0, float, 32)
   NATDIFF_CASE(0, float, 64)
   NATDIFF_CASE(0, float, 72)
+  NATDIFF_CASE(1, __nv_bfloat16, 16)
+  NATDIFF_CASE(1, __nv_bfloat16, 32)
   NATDIFF_CASE(1, __nv_bfloat16, 64)
   NATDIFF_CASE(1, __nv_bfloat16, 72)
 #undef NATDIFF_CASE

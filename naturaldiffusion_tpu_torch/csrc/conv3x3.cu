@@ -246,6 +246,135 @@ void launch(int has_pre, int has_skip, int emit_stats, dim3 grid,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// Halo-tiled conv for large maps: the same function as the instance of
+// `conv3x3_kernel` without prologue, skip or statistics (3x3, stride 1,
+// SAME, + bias, f32 accumulation, output in x's type).
+//
+// Replaces two Pallas TPU kernels of naturaldiffusion_tpu/ops/conv3x3.py:
+//   * `_conv_tiled_kernel` (via `_pallas_conv_tiled_call`): a grid step DMAs
+//     one H-tile of rows plus a one-row halo on each side into VMEM, with
+//     the image-edge halo rows zeroed, and runs the nine taps;
+//   * `_conv_tiledew_kernel` (via `_pallas_conv_tiledew_call`): the same
+//     function with the halo fetched as overlapping element windows of a
+//     zero-padded input.
+// The two differ only in how VMEM is filled, so one kernel serves both.
+// A block owns TH x TW output pixels of one sample and a slice of BN output
+// channels.  Per chunk of BK input channels it stages the (TH+2) x (TW+2)
+// halo tile in shared memory, zeros where the halo leaves the image (SAME
+// padding), and the 9 x BK x BN weights beside it; each thread then
+// accumulates 8 neighbouring pixels of one row x 4 output channels in f32,
+// reusing each staged input row across the three horizontal taps.  The tile
+// is two-dimensional because a whole 256-pixel row times a channel chunk
+// would not leave room for enough blocks per SM.
+//
+// Bound on the H100: operations (at [4, 256, 256, 128] -> 128, 77 GFLOP on
+// 67 MB).  Like the kernel above it accumulates with SIMT f32 FMAs, so the
+// card's 67 TFLOP/s f32 rate, not the 989 TFLOP/s of the bf16 tensor cores,
+// limits it.  Staging the next chunk while the current one is summed
+// (cp.async, TMA) and the tensor cores are later work.
+
+namespace {
+
+constexpr int TT_H = 8;     // output rows per block
+constexpr int TT_W = 16;    // output columns per block
+constexpr int TT_N = 64;    // output channels per block
+constexpr int TT_K = 8;     // input channels per stage
+constexpr int TT_HALO_H = TT_H + 2, TT_HALO_W = TT_W + 2;
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+conv3x3_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                     const T* __restrict__ bias, T* __restrict__ y, int H,
+                     int W, int Cin, int Cout, int tiles_w) {
+  __shared__ __align__(16) float xs[TT_K][TT_HALO_H][TT_HALO_W];
+  __shared__ __align__(16) float ws[9][TT_K][TT_N];
+
+  const int tid = threadIdx.x;
+  const int h0 = (blockIdx.x / tiles_w) * TT_H;
+  const int w0 = (blockIdx.x % tiles_w) * TT_W;
+  const int n0 = blockIdx.y * TT_N;
+  const int b = blockIdx.z;
+  const T* xb = x + (long long)b * H * W * Cin;
+
+  // compute: thread owns output channels tc*4.. and pixels (row, col0..+7)
+  const int tc = tid % (TT_N / 4);
+  const int tp = tid / (TT_N / 4);
+  const int row = tp / 2;
+  const int col0 = (tp % 2) * 8;
+
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+
+  for (int c0 = 0; c0 < Cin; c0 += TT_K) {
+    // the halo tile, input channel fastest: zero outside the image
+    for (int i = tid; i < TT_K * TT_HALO_H * TT_HALO_W; i += THREADS) {
+      const int ci = i % TT_K;
+      const int pix = i / TT_K;
+      const int hr = pix / TT_HALO_W, hc = pix % TT_HALO_W;
+      const int gh = h0 + hr - 1, gw = w0 + hc - 1;
+      float v = 0.f;
+      if (gh >= 0 && gh < H && gw >= 0 && gw < W && c0 + ci < Cin)
+        v = to_f(xb[((long long)gh * W + gw) * Cin + c0 + ci]);
+      xs[ci][hr][hc] = v;
+    }
+    // the weights of this chunk, output channel fastest
+    for (int i = tid; i < 9 * TT_K * TT_N; i += THREADS) {
+      const int co = i % TT_N;
+      const int k = (i / TT_N) % TT_K;
+      const int tap = i / (TT_N * TT_K);
+      float v = 0.f;
+      if (c0 + k < Cin && n0 + co < Cout)
+        v = to_f(w[((long long)tap * Cin + c0 + k) * Cout + n0 + co]);
+      ws[tap][k][co] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ci = 0; ci < TT_K; ++ci) {
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        float a[10];
+#pragma unroll
+        for (int j = 0; j < 10; ++j) a[j] = xs[ci][row + dy][col0 + j];
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const float4 wv =
+              *reinterpret_cast<const float4*>(&ws[dy * 3 + dx][ci][tc * 4]);
+          const float wq[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              acc[j][q] = fmaf(a[j + dx], wq[q], acc[j][q]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const int oh = h0 + row;
+  if (oh >= H) return;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int ow = w0 + col0 + j;
+    if (ow >= W) continue;
+    T* yp = y + (((long long)b * H + oh) * W + ow) * Cout;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int co = n0 + tc * 4 + q;
+      if (co >= Cout) continue;
+      float v = acc[j][q];
+      if (bias != nullptr) v += to_f(bias[co]);
+      yp[co] = from_f<T>(v);
+    }
+  }
+}
+
+}  // namespace
+
 extern "C" {
 
 const char* natdiff_error_string(int err) {
@@ -270,6 +399,32 @@ int natdiff_conv3x3(int dtype, int has_pre, int has_skip, int emit_stats,
     launch<__nv_bfloat16>(has_pre, has_skip, emit_stats, grid, st, x, w, bias,
                           pre_w, pre_b, skip, out_scale, y, s1, s2, B, H, W,
                           Cin, Cout);
+  return (int)cudaGetLastError();
+}
+
+// The halo-tiled conv: x [B,H,W,Cin], w [3,3,Cin,Cout], bias [Cout] or
+// null, y [B,H,W,Cout]; contiguous, dtype as above.
+int natdiff_conv3x3_tiled(int dtype, const void* x, const void* w,
+                          const void* bias, void* y, int B, int H, int W,
+                          int Cin, int Cout, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int tiles_w = (W + TT_W - 1) / TT_W;
+  const long long tiles = (long long)tiles_w * ((H + TT_H - 1) / TT_H);
+  dim3 grid((unsigned)tiles, (unsigned)((Cout + TT_N - 1) / TT_N),
+            (unsigned)B);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    conv3x3_tiled_kernel<float><<<grid, THREADS, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<const float*>(bias), static_cast<float*>(y), H, W, Cin,
+        Cout, tiles_w);
+  else
+    conv3x3_tiled_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(w),
+        static_cast<const __nv_bfloat16*>(bias),
+        static_cast<__nv_bfloat16*>(y), H, W, Cin, Cout, tiles_w);
   return (int)cudaGetLastError();
 }
 

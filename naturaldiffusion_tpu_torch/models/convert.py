@@ -23,7 +23,10 @@ def load_jax_params(model, params, dtype: torch.dtype | None = None):
 
     ``params``: the ``["params"]`` tree of the JAX package's model as
     nested dicts of numpy arrays: NCSN++'s ``{"m0": {"kernel", "bias"},
-    "m3": {"Conv_0": {...}, ...}, ...}`` (matched against ``model.layers``),
+    "m3": {"Conv_0": {...}, ...}, ...}`` (matched against ``model.layers``;
+    with the VE options also the Fourier projection's ``W``, the pyramid
+    GroupNorms and convs, ``Combine``'s ``Conv_0`` and the FIR convs'
+    ``Conv2d_0.weight``),
     or DiT's ``{"x_embedder_proj": {"kernel" [p,p,C,D] HWIO, "bias"},
     "y_embedder_embedding_table": {"embedding"}, "blocks_0": {"attn":
     {"qkv": ...}, ...}, ...}`` (matched against the model itself; its

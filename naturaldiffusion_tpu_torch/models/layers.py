@@ -1,19 +1,22 @@
-"""Building blocks of the NCSN++ UNet in PyTorch, NHWC (port of the parts
-of ``naturaldiffusion_tpu/models/layers.py`` that the CIFAR-10 DDPM++
-configuration reaches).
+"""Building blocks of the NCSN++ UNet in PyTorch, NHWC (port of
+``naturaldiffusion_tpu/models/layers.py``, without ``ResnetBlockDDPMpp``).
 
 Parameters keep the JAX package's names and layouts (``kernel`` [in, out] or
-[kh, kw, in, out], ``bias``, ``scale``, ``W``, ``b``) and submodules keep
-its names (``GroupNorm_0``, ``Conv_0``, ``NIN_1``, ...), so carrying the JAX
-weights across is a tree walk (:mod:`.convert`).
+[kh, kw, in, out], ``bias``, ``scale``, ``W``, ``b``, ``weight``) and
+submodules keep its names (``GroupNorm_0``, ``Conv_0``, ``NIN_1``,
+``Conv2d_0``, ...), so carrying the JAX weights across is a tree walk
+(:mod:`.convert`).
 
-Every 3x3 conv goes through a hand-written kernel on the card: the resblock
-convs through the fused-resblock kernel (``ops.conv3x3.conv3x3_gn``), the
-others through the plain conv kernel (``ops.conv3x3.conv3x3``).  The 1x1
-convs, ``Dense``, ``NIN`` and the attention products stay plain PyTorch, as
-the JAX package leaves them to XLA.  The resblocks run only the fused form
-(``NATDIFF_PALLAS_CONV=2`` in the JAX package), which is the same maths as
-the unfused one; dropout is the identity (inference only).
+Every 3x3 stride-1 conv goes through a hand-written kernel on the card:
+the fused resblock convs through K3 (``ops.conv3x3.conv3x3_gn``), the large
+maps that the JAX package sends to its halo-tiled kernels through K4
+(``conv3x3_tiled``), the others through K2 (``conv3x3``).  Every standalone
+GroupNorm goes through K6 (``ops.group_norm.fused_group_norm``).  The 1x1
+convs, ``Dense``, ``NIN``, the attention products, the FIR resampling and
+the FIR convs stay plain PyTorch, as the JAX package leaves them to XLA.
+Each BigGAN resblock takes the form the JAX package gives it under
+``NATDIFF_PALLAS_CONV=2`` (``layers.py:457-537``): fused, fused after the
+resampling, or unfused; dropout is the identity (inference only).
 """
 
 from __future__ import annotations
@@ -25,8 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv3x3 as convops
-from ..ops.group_norm import (gn_affine_coeffs, gn_channel_sums,
-                               group_norm_reference)
+from ..ops import group_norm as gnops
+from ..ops import upfirdn2d as firops
 
 _LATER = "is not ported yet (ROADMAP.md, Queue A, item 6: NCSN++ options)"
 
@@ -57,6 +60,25 @@ def get_timestep_embedding(timesteps, embedding_dim: int,
     if embedding_dim % 2 == 1:
         emb = F.pad(emb, (0, 1))
     return emb
+
+
+class GaussianFourierProjection(nn.Module):
+    """Random Fourier features of log-sigma (JAX ``layers.py:49``): ``W``
+    [embedding_size] ~ N(0, scale^2), output ``[sin, cos]`` of
+    ``x W 2 pi``, 2 * embedding_size wide."""
+
+    def __init__(self, embedding_size: int = 256, scale: float = 1.0):
+        super().__init__()
+        self.W = nn.Parameter(torch.empty(embedding_size))
+        self.scale = scale
+
+    def reset_parameters(self, generator):
+        with torch.no_grad():
+            self.W.normal_(0.0, self.scale, generator=generator)
+
+    def forward(self, x):
+        x_proj = x[:, None] * self.W[None, :] * 2 * math.pi
+        return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], dim=-1)
 
 
 class Dense(nn.Module):
@@ -92,8 +114,10 @@ class NIN(nn.Module):
 
 class PConv3x3(nn.Module):
     """3x3 / stride-1 / SAME conv, kernel [3,3,in,out].  With ``pre``,
-    ``skip`` or ``emit_stats`` it is the fused resblock conv (kernel K3),
-    else the plain conv (kernel K2)."""
+    ``skip`` or ``emit_stats`` it is the fused resblock conv (kernel K3);
+    else, on a map where the JAX package leaves its whole-image kernel for
+    the halo-tiled one (``ops.conv3x3.large_map``), kernel K4; else kernel
+    K2."""
 
     def __init__(self, in_ch: int, out_ch: int, init_scale: float = 1.0):
         super().__init__()
@@ -110,6 +134,8 @@ class PConv3x3(nn.Module):
             return convops.conv3x3_gn(x, self.kernel, self.bias, pre=pre,
                                       skip=skip, skip_rescale=skip_rescale,
                                       emit_stats=emit_stats)
+        if convops.large_map(x, self.kernel.shape[3]):
+            return convops.conv3x3_tiled(x, self.kernel, self.bias)
         return convops.conv3x3(x, self.kernel, self.bias)
 
 
@@ -131,7 +157,7 @@ class PConv1x1(nn.Module):
 class GroupNorm(nn.Module):
     """GroupNorm(min(c//4, 32)) with float32 statistics (fast variance).
 
-    ``forward`` is the standalone form (plain PyTorch); :meth:`coeffs` is
+    ``forward`` is the standalone form (kernel K6); :meth:`coeffs` is
     the fused-resblock form: the normalize-affine, with an optional
     per-(sample, channel) ``extra_bias`` folded in, collapsed to float32
     [B, C] scalars for the conv kernel's prologue, from the producer's
@@ -147,15 +173,16 @@ class GroupNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x):
-        return group_norm_reference(x, self.scale, self.bias, self.num_groups,
-                                    eps=self.eps, act=self.act)
+    def forward(self, x, extra_bias=None):
+        return gnops.fused_group_norm(x, self.scale, self.bias,
+                                      self.num_groups, eps=self.eps,
+                                      act=self.act, extra_bias=extra_bias)
 
     def coeffs(self, x, extra_bias=None, stats=None):
-        s1, s2 = stats if stats is not None else gn_channel_sums(x)
-        return gn_affine_coeffs(s1, s2, x.shape[1] * x.shape[2], self.scale,
-                                self.bias, self.num_groups, eps=self.eps,
-                                extra_bias=extra_bias)
+        s1, s2 = stats if stats is not None else gnops.gn_channel_sums(x)
+        return gnops.gn_affine_coeffs(s1, s2, x.shape[1] * x.shape[2],
+                                      self.scale, self.bias, self.num_groups,
+                                      eps=self.eps, extra_bias=extra_bias)
 
 
 class AttnBlockpp(nn.Module):
@@ -185,6 +212,8 @@ class AttnBlockpp(nn.Module):
 
 
 def naive_upsample(x, factor: int = 2):
+    """Nearest-neighbour upsample (``jax.image.resize(..., "nearest")`` at
+    an integer factor)."""
     b, h, w, c = x.shape
     x = x[:, :, None, :, None, :].expand(b, h, factor, w, factor, c)
     return x.reshape(b, h * factor, w * factor, c)
@@ -195,26 +224,149 @@ def avg_pool2x2(x):
     return x.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
 
 
-class ResnetBlockBigGANpp(nn.Module):
-    """BigGAN residual block with in-block resampling (``layerspp.py:209-274``),
-    in the fused-resblock form of the JAX package (``layers.py:457-501``).
+class FIRConv2d(nn.Module):
+    """3x3 conv fused with FIR up- or down-sampling (JAX ``layers.py:268``),
+    parameters ``weight`` [3,3,in,out] and ``bias``; plain PyTorch, as the
+    JAX package's is XLA."""
 
-    Plain form: GN_0 collapses to coefficients on Conv_0's prologue (with its
-    SiLU) and Conv_0 emits GN_1's channel sums.  Resampling form: the
-    resample sits between GN_0's SiLU and Conv_0, so GN_0 runs standalone
-    and Conv_0 only emits the sums.  Both: the temb projection enters GN_1's
-    affine algebraically, GN_1 + SiLU ride Conv_1's prologue, and the
-    skip-add (+1/sqrt2) is Conv_1's epilogue."""
+    def __init__(self, in_ch: int, out_ch: int, up: bool = False,
+                 down: bool = False, fir_kernel=(1, 3, 3, 1),
+                 use_bias: bool = True):
+        super().__init__()
+        self.up, self.down = up, down
+        self.fir_kernel = tuple(fir_kernel)
+        self.weight = nn.Parameter(torch.empty(3, 3, in_ch, out_ch))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
+
+    def reset_parameters(self, generator):
+        variance_scaling_(self.weight, 1.0, generator)
+
+    def forward(self, x):
+        k = list(self.fir_kernel)
+        if self.up:
+            y = firops.upsample_conv_2d(x, self.weight, k=k)
+        elif self.down:
+            y = firops.conv_downsample_2d(x, self.weight, k=k)
+        else:
+            y = F.conv2d(x.permute(0, 3, 1, 2),
+                         self.weight.permute(3, 2, 0, 1).to(x.dtype),
+                         padding=1).permute(0, 2, 3, 1).contiguous()
+        return y if self.bias is None else y + self.bias
+
+
+class Conv3x3Stride2(nn.Module):
+    """The non-FIR ``Downsample`` conv (JAX ``layers.py:336-339``): pad
+    (0, 1, 0, 1), then a VALID 3x3 conv with stride 2; plain PyTorch, as
+    the JAX package's ``nn.Conv`` is XLA."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(3, 3, in_ch, out_ch))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+
+    def reset_parameters(self, generator):
+        variance_scaling_(self.kernel, 1.0, generator)
+
+    def forward(self, x):
+        y = F.pad(x.permute(0, 3, 1, 2), (0, 1, 0, 1))
+        y = F.conv2d(y, self.kernel.permute(3, 2, 0, 1).to(x.dtype), stride=2)
+        return y.permute(0, 2, 3, 1).contiguous() + self.bias
+
+
+class Upsample(nn.Module):
+    """x2 upsample, nearest or FIR, optionally with a conv (JAX
+    ``layers.py:295``)."""
+
+    def __init__(self, in_ch: int, out_ch: int | None = None,
+                 with_conv: bool = False, fir: bool = False,
+                 fir_kernel=(1, 3, 3, 1)):
+        super().__init__()
+        out_ch = out_ch or in_ch
+        self.with_conv, self.fir = with_conv, fir
+        self.fir_kernel = tuple(fir_kernel)
+        if with_conv and fir:
+            self.Conv2d_0 = FIRConv2d(in_ch, out_ch, up=True,
+                                      fir_kernel=fir_kernel)
+        elif with_conv:
+            self.Conv_0 = PConv3x3(in_ch, out_ch)
+
+    def forward(self, x):
+        if not self.fir:
+            y = naive_upsample(x)
+            return self.Conv_0(y) if self.with_conv else y
+        if self.with_conv:
+            return self.Conv2d_0(x)
+        return firops.upsample_2d(x, k=list(self.fir_kernel))
+
+
+class Downsample(nn.Module):
+    """x2 downsample, average or FIR, optionally with a conv (JAX
+    ``layers.py:319``)."""
+
+    def __init__(self, in_ch: int, out_ch: int | None = None,
+                 with_conv: bool = False, fir: bool = False,
+                 fir_kernel=(1, 3, 3, 1)):
+        super().__init__()
+        out_ch = out_ch or in_ch
+        self.with_conv, self.fir = with_conv, fir
+        self.fir_kernel = tuple(fir_kernel)
+        if with_conv and fir:
+            self.Conv2d_0 = FIRConv2d(in_ch, out_ch, down=True,
+                                      fir_kernel=fir_kernel)
+        elif with_conv:
+            self.Conv_0 = Conv3x3Stride2(in_ch, out_ch)
+
+    def forward(self, x):
+        if not self.fir:
+            return self.Conv_0(x) if self.with_conv else avg_pool2x2(x)
+        if self.with_conv:
+            return self.Conv2d_0(x)
+        return firops.downsample_2d(x, k=list(self.fir_kernel))
+
+
+class Combine(nn.Module):
+    """Progressive-input combiner (JAX ``layers.py:347``): a 1x1 conv of
+    ``x`` to ``dim2`` channels, then concatenated with or added to ``y``."""
+
+    def __init__(self, in_ch: int, dim2: int, method: str = "cat"):
+        super().__init__()
+        if method not in ("cat", "sum"):
+            raise ValueError(f"unknown combine method {method!r}")
+        self.method = method
+        self.Conv_0 = PConv1x1(in_ch, dim2)
+
+    def forward(self, x, y):
+        h = self.Conv_0(x)
+        return torch.cat([h, y], dim=-1) if self.method == "cat" else h + y
+
+
+class ResnetBlockBigGANpp(nn.Module):
+    """BigGAN residual block with in-block resampling (``layerspp.py:209-274``;
+    JAX ``layers.py:440-537``), in the three forms the JAX package routes
+    between (:meth:`route`):
+
+    * ``"fused"``: GN_0 collapses to coefficients on Conv_0's prologue (with
+      its SiLU) and Conv_0 emits GN_1's channel sums (kernel K3 twice);
+    * ``"resample_fused"``: the resample sits between GN_0's SiLU and
+      Conv_0, so GN_0 runs standalone (K6) and Conv_0 only emits the sums;
+    * ``"unfused"``: GN_0 (K6), resample, Conv_0, GN_1 with the temb
+      projection as its extra bias (K6), Conv_1 (K2, or K4 on a large map),
+      then the skip-add.
+
+    In both fused forms the temb projection enters GN_1's affine
+    algebraically, GN_1 + SiLU ride Conv_1's prologue, and the skip-add
+    (+1/sqrt2) is Conv_1's epilogue."""
 
     def __init__(self, in_ch: int, out_ch: int | None = None,
                  temb_dim: int | None = None, up: bool = False,
                  down: bool = False, fir: bool = False,
-                 skip_rescale: bool = True, init_scale: float = 0.0):
+                 fir_kernel=(1, 3, 3, 1), skip_rescale: bool = True,
+                 init_scale: float = 0.0):
         super().__init__()
-        if fir:
-            raise NotImplementedError(f"FIR resampling {_LATER}")
         out_ch = out_ch or in_ch
+        self.out_ch = out_ch
         self.up, self.down = up, down
+        self.fir, self.fir_kernel = fir, tuple(fir_kernel)
         self.skip_rescale = skip_rescale
         self.GroupNorm_0 = GroupNorm(in_ch, act="silu")
         self.Conv_0 = PConv3x3(in_ch, out_ch)
@@ -225,19 +377,48 @@ class ResnetBlockBigGANpp(nn.Module):
         if in_ch != out_ch or up or down:
             self.Conv_2 = PConv1x1(in_ch, out_ch)
 
-    def forward(self, x, temb=None):
+    def route(self, x) -> str:
+        """The JAX package's gate (``layers.py:457-509``) on x's shape and
+        type: ``"resample_fused"``, ``"fused"`` or ``"unfused"``."""
         if self.up or self.down:
-            h = self.GroupNorm_0(x)
-            resample = naive_upsample if self.up else avg_pool2x2
-            h, x = resample(h), resample(x)
+            b, hh, ww, c = x.shape
+            rshape = ((b, hh * 2, ww * 2, c) if self.up
+                      else (b, hh // 2, ww // 2, c))
+            if convops.fused_resblock_ok(x, self.out_ch, shape=rshape):
+                return "resample_fused"
+            return "unfused"
+        return "fused" if convops.fused_resblock_ok(x, self.out_ch) \
+            else "unfused"
+
+    def _resample(self, x):
+        if self.up:
+            return (firops.upsample_2d(x, k=list(self.fir_kernel)) if self.fir
+                    else naive_upsample(x))
+        if self.down:
+            return (firops.downsample_2d(x, k=list(self.fir_kernel))
+                    if self.fir else avg_pool2x2(x))
+        return x
+
+    def forward(self, x, temb=None):
+        form = self.route(x)
+        tb = self.Dense_0(F.silu(temb)) if temb is not None else None
+        if form == "unfused":
+            h = self._resample(self.GroupNorm_0(x))
+            x = self._resample(x)
+            h = self.GroupNorm_1(self.Conv_0(h), extra_bias=tb)
+            h = self.Conv_1(h)
+            if hasattr(self, "Conv_2"):
+                x = self.Conv_2(x)
+            out = x + h
+            return out / math.sqrt(2.0) if self.skip_rescale else out
+        if form == "resample_fused":
+            h = self._resample(self.GroupNorm_0(x))
+            x = self._resample(x)
             h, s1, s2 = self.Conv_0(h, emit_stats=True)
         else:
             w0, b0 = self.GroupNorm_0.coeffs(x)
             h, s1, s2 = self.Conv_0(x, pre=(w0, b0), emit_stats=True)
         xs = self.Conv_2(x) if hasattr(self, "Conv_2") else x
-        tb = None
-        if temb is not None:
-            tb = self.Dense_0(F.silu(temb))
         w1, b1 = self.GroupNorm_1.coeffs(h, extra_bias=tb, stats=(s1, s2))
         return self.Conv_1(h, pre=(w1, b1), skip=xs.to(h.dtype),
                            skip_rescale=self.skip_rescale)

@@ -7,18 +7,19 @@ running index; the JAX package names the walk's modules ``m{i}``, and so does
 this port (an ``nn.ModuleDict`` keyed ``m{i}``), so the JAX weights map onto
 it by name (:func:`.convert.load_jax_params`).
 
-Ported so far: what ``CIFAR10_DDPMPP_CONTINUOUS`` uses — BigGAN resblocks, no
-FIR, no progressive paths, positional embedding, conditional, no
-scale_by_sigma.  Other options raise ``NotImplementedError``.  The JAX
-config's fields that this walk never reads (``dropout``,
-``resamp_with_conv``, ``fir_kernel``, ``progressive_combine``,
-``fourier_scale``) are left out; each comes back with the slice that reads
-it.
+Ported: BigGAN resblocks with or without FIR, the progressive output paths
+(``output_skip``, ``residual``) and input paths (``input_skip``,
+``residual``) with ``progressive_combine`` sum or cat, the Fourier and the
+positional embedding, conditional or not, ``scale_by_sigma`` and
+``centered``.  ``ResnetBlockDDPMpp`` raises ``NotImplementedError``.  The
+JAX config's ``dropout`` (inference only here) and ``num_train_timesteps``
+(never read by the model) are left out.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import torch
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..ops import upfirdn2d as firops
 from . import layers as L
 
 
@@ -37,13 +39,17 @@ class NCSNppConfig:
     ch_mult: Sequence[int] = (1, 2, 2, 2)
     num_res_blocks: int = 4
     attn_resolutions: Sequence[int] = (16,)
+    resamp_with_conv: bool = True
     conditional: bool = True
     fir: bool = False
+    fir_kernel: Sequence[int] = (1, 3, 3, 1)
     skip_rescale: bool = True
     resblock_type: str = "biggan"            # "ddpm" | "biggan"
     progressive: str = "none"                # "none"|"output_skip"|"residual"
     progressive_input: str = "none"          # "none"|"input_skip"|"residual"
+    progressive_combine: str = "sum"         # "sum"|"cat"
     embedding_type: str = "positional"       # "positional"|"fourier"
+    fourier_scale: float = 16.0
     init_scale: float = 0.0
     centered: bool = True
     scale_by_sigma: bool = False
@@ -53,59 +59,92 @@ class NCSNppConfig:
 # (deps/score_sde_pytorch/configs/vp/cifar10_ddpmpp_continuous.py:22-66)
 CIFAR10_DDPMPP_CONTINUOUS = NCSNppConfig()
 
+# VE CIFAR-10 NCSN++ (JAX ``models/ncsnpp.py:61-64``): FIR + Fourier
+CIFAR10_NCSNPP_CONTINUOUS = NCSNppConfig(
+    fir=True, resblock_type="biggan", embedding_type="fourier",
+    scale_by_sigma=True, conditional=True)
 
-def _check_supported(cfg: NCSNppConfig) -> None:
-    unported = [
-        ("resblock_type", cfg.resblock_type != "biggan",
-         "ResnetBlockDDPMpp"),
-        ("fir", cfg.fir, "FIR resampling"),
-        ("progressive", cfg.progressive != "none", "progressive output"),
-        ("progressive_input", cfg.progressive_input != "none",
-         "progressive input"),
-        ("embedding_type", cfg.embedding_type != "positional",
-         "the Fourier embedding"),
-        ("scale_by_sigma", cfg.scale_by_sigma, "scale_by_sigma"),
-    ]
-    for field, bad, what in unported:
-        if bad:
-            raise NotImplementedError(f"{what} ({field}={getattr(cfg, field)!r}) "
-                                      f"{L._LATER}")
+
+def _check_supported(cfg: NCSNppConfig, sigmas) -> None:
+    if cfg.resblock_type != "biggan":
+        raise NotImplementedError(
+            f"ResnetBlockDDPMpp (resblock_type={cfg.resblock_type!r}) "
+            f"{L._LATER}")
+    for field, allowed in (("progressive", ("none", "output_skip",
+                                            "residual")),
+                           ("progressive_input", ("none", "input_skip",
+                                                  "residual")),
+                           ("progressive_combine", ("sum", "cat")),
+                           ("embedding_type", ("positional", "fourier"))):
+        if getattr(cfg, field) not in allowed:
+            raise ValueError(f"{field}={getattr(cfg, field)!r} is not one of "
+                             f"{allowed}")
+    if (cfg.scale_by_sigma and cfg.embedding_type == "positional"
+            and sigmas is None):
+        raise ValueError("scale_by_sigma with the positional embedding needs "
+                         "the per-timestep sigma table (sigmas=)")
+
+
+def _plain_up(x, cfg):
+    """Param-free x2 upsample (JAX ``ncsnpp.py:67``)."""
+    if cfg.fir:
+        return firops.upsample_2d(x, k=list(cfg.fir_kernel))
+    return L.naive_upsample(x)
+
+
+def _plain_down(x, cfg):
+    """Param-free x2 downsample (JAX ``ncsnpp.py:75``)."""
+    if cfg.fir:
+        return firops.downsample_2d(x, k=list(cfg.fir_kernel))
+    return L.avg_pool2x2(x)
 
 
 class NCSNpp(nn.Module):
     """``forward(x [B,H,W,C], time_cond [B]) -> [B,H,W,C]``.
 
-    Weights are random from ``seed`` (the JAX package's init: variance
-    scaling, zero biases); :func:`.convert.load_jax_params` replaces them.
-    The module lands on ``device`` (default ``"cuda"``, which raises
-    without a card)."""
+    ``time_cond`` is the noise level sigma for the Fourier embedding and the
+    timestep for the positional one; ``sigmas`` is the per-timestep sigma
+    table that ``scale_by_sigma`` reads with the positional embedding (JAX's
+    ``NCSNpp.sigmas``).  Weights are random from ``seed`` (the JAX package's
+    init: variance scaling, zero biases); :func:`.convert.load_jax_params`
+    replaces them.  The module lands on ``device`` (default ``"cuda"``,
+    which raises without a card)."""
 
     def __init__(self, config: NCSNppConfig = CIFAR10_DDPMPP_CONTINUOUS, *,
-                 device="cuda", seed: int = 0):
+                 sigmas=None, device="cuda", seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
         cfg = config
-        _check_supported(cfg)
+        _check_supported(cfg, sigmas)
         self.config = cfg
-        nf = cfg.nf
+        if sigmas is not None:
+            self.register_buffer("sigmas", torch.as_tensor(
+                sigmas, dtype=torch.float32), persistent=False)
+        else:
+            self.sigmas = None
+        nf, nc = cfg.nf, cfg.num_channels
         temb_dim = 4 * nf if cfg.conditional else None
+        fir = dict(fir=cfg.fir, fir_kernel=tuple(cfg.fir_kernel))
         mods: list[nn.Module] = []
 
         def res(in_ch, out_ch=None, **kw):
             mods.append(L.ResnetBlockBigGANpp(
-                in_ch, out_ch, temb_dim=temb_dim, fir=cfg.fir,
+                in_ch, out_ch, temb_dim=temb_dim,
                 skip_rescale=cfg.skip_rescale, init_scale=cfg.init_scale,
-                **kw))
+                **fir, **kw))
 
         def attn(ch):
             mods.append(L.AttnBlockpp(ch, skip_rescale=cfg.skip_rescale,
                                       init_scale=cfg.init_scale))
 
         # the same walk as forward(), recording channel counts
+        if cfg.embedding_type == "fourier":
+            mods.append(L.GaussianFourierProjection(nf, cfg.fourier_scale))
         if cfg.conditional:
-            mods += [L.Dense(nf, 4 * nf), L.Dense(4 * nf, 4 * nf)]
-        mods.append(L.PConv3x3(cfg.num_channels, nf))
-        hs_ch, in_ch, res_now = [nf], nf, cfg.image_size
+            emb = 2 * nf if cfg.embedding_type == "fourier" else nf
+            mods += [L.Dense(emb, 4 * nf), L.Dense(4 * nf, 4 * nf)]
+        mods.append(L.PConv3x3(nc, nf))
+        hs_ch, in_ch, res_now, pyr_ch = [nf], nf, cfg.image_size, nc
         for i_level, mult in enumerate(cfg.ch_mult):
             for _ in range(cfg.num_res_blocks):
                 res(in_ch, nf * mult)
@@ -116,6 +155,15 @@ class NCSNpp(nn.Module):
             if i_level != len(cfg.ch_mult) - 1:
                 res(in_ch, down=True)
                 res_now //= 2
+                if cfg.progressive_input == "input_skip":
+                    mods.append(L.Combine(nc, in_ch,
+                                          cfg.progressive_combine))
+                    if cfg.progressive_combine == "cat":
+                        in_ch *= 2
+                elif cfg.progressive_input == "residual":
+                    mods.append(L.Downsample(pyr_ch, in_ch, with_conv=cfg
+                                             .resamp_with_conv, **fir))
+                    pyr_ch = in_ch
                 hs_ch.append(in_ch)
         res(in_ch)
         attn(in_ch)
@@ -127,12 +175,30 @@ class NCSNpp(nn.Module):
                 in_ch = out_ch
             if res_now in cfg.attn_resolutions:
                 attn(in_ch)
+            if cfg.progressive != "none":
+                if i_level == len(cfg.ch_mult) - 1:
+                    mods.append(L.GroupNorm(in_ch, act="silu"))
+                    if cfg.progressive == "output_skip":
+                        mods.append(L.PConv3x3(in_ch, nc,
+                                               init_scale=cfg.init_scale))
+                        pyr_ch = nc
+                    else:
+                        mods.append(L.PConv3x3(in_ch, in_ch))
+                        pyr_ch = in_ch
+                elif cfg.progressive == "output_skip":
+                    mods.append(L.GroupNorm(in_ch, act="silu"))
+                    mods.append(L.PConv3x3(in_ch, nc,
+                                           init_scale=cfg.init_scale))
+                else:
+                    mods.append(L.Upsample(pyr_ch, in_ch, with_conv=cfg
+                                           .resamp_with_conv, **fir))
+                    pyr_ch = in_ch
             if i_level != 0:
                 res(in_ch, up=True)
                 res_now *= 2
-        mods.append(L.GroupNorm(in_ch, act="silu"))
-        mods.append(L.PConv3x3(in_ch, cfg.num_channels,
-                               init_scale=cfg.init_scale))
+        if cfg.progressive != "output_skip":
+            mods.append(L.GroupNorm(in_ch, act="silu"))
+            mods.append(L.PConv3x3(in_ch, nc, init_scale=cfg.init_scale))
         self.layers = nn.ModuleDict({f"m{i}": m for i, m in enumerate(mods)})
 
         gen = torch.Generator().manual_seed(seed)
@@ -144,36 +210,74 @@ class NCSNpp(nn.Module):
     def forward(self, x, time_cond):
         cfg = self.config
         it = iter(self.layers.values())
-        temb = None
+        nlev = len(cfg.ch_mult)
+        used_sigmas = None
+        if cfg.embedding_type == "fourier":
+            used_sigmas = time_cond
+            temb = next(it)(torch.log(used_sigmas))
+        else:
+            temb = L.get_timestep_embedding(time_cond, cfg.nf)
+            if self.sigmas is not None:
+                used_sigmas = self.sigmas.to(x.dtype)[time_cond.long()]
         if cfg.conditional:
             # keep the caller's activation type: the embedding is f32
-            temb = L.get_timestep_embedding(time_cond, cfg.nf).to(x.dtype)
-            temb = next(it)(temb)
+            temb = next(it)(temb.to(x.dtype))
             temb = next(it)(F.silu(temb))
+        else:
+            temb = None
         if not cfg.centered:
             x = 2 * x - 1.0
 
+        input_pyramid = x if cfg.progressive_input != "none" else None
         hs = [next(it)(x)]
-        for i_level in range(len(cfg.ch_mult)):
+        for i_level in range(nlev):
             for _ in range(cfg.num_res_blocks):
                 h = next(it)(hs[-1], temb)
                 if h.shape[1] in cfg.attn_resolutions:
                     h = next(it)(h)
                 hs.append(h)
-            if i_level != len(cfg.ch_mult) - 1:
-                hs.append(next(it)(hs[-1], temb))
+            if i_level != nlev - 1:
+                h = next(it)(hs[-1], temb)
+                if cfg.progressive_input == "input_skip":
+                    input_pyramid = _plain_down(input_pyramid, cfg)
+                    h = next(it)(input_pyramid, h)
+                elif cfg.progressive_input == "residual":
+                    input_pyramid = next(it)(input_pyramid) + h
+                    if cfg.skip_rescale:
+                        input_pyramid = input_pyramid / math.sqrt(2.0)
+                    h = input_pyramid
+                hs.append(h)
 
         h = next(it)(hs[-1], temb)
         h = next(it)(h)
         h = next(it)(h, temb)
 
-        for i_level in reversed(range(len(cfg.ch_mult))):
+        pyramid = None
+        for i_level in reversed(range(nlev)):
             for _ in range(cfg.num_res_blocks + 1):
                 h = next(it)(torch.cat([h, hs.pop()], dim=-1), temb)
             if h.shape[1] in cfg.attn_resolutions:
                 h = next(it)(h)
+            if cfg.progressive != "none":
+                if i_level == nlev - 1:
+                    gn, conv = next(it), next(it)
+                    pyramid = conv(gn(h))
+                elif cfg.progressive == "output_skip":
+                    gn, conv = next(it), next(it)
+                    pyramid = _plain_up(pyramid, cfg) + conv(gn(h))
+                else:
+                    pyramid = next(it)(pyramid) + h
+                    if cfg.skip_rescale:
+                        pyramid = pyramid / math.sqrt(2.0)
+                    h = pyramid
             if i_level != 0:
                 h = next(it)(h, temb)
 
-        h = next(it)(h)         # GroupNorm + SiLU
-        return next(it)(h)      # 3x3 head
+        if cfg.progressive == "output_skip":
+            h = pyramid
+        else:
+            gn, conv = next(it), next(it)
+            h = conv(gn(h))             # GroupNorm + SiLU, 3x3 head
+        if cfg.scale_by_sigma:
+            h = h / used_sigmas.reshape(-1, 1, 1, 1)
+        return h

@@ -3,10 +3,10 @@
 * :func:`mha` — ``q/k/v [B, H, T, D] -> [B, H, T, D]``, non-causal.  The
   ``"auto"`` and ``"flash"`` backends run :func:`flash_attention`: kernel
   K9 (``csrc/attention.cu``) for a CUDA tensor, :func:`mha_reference` for a
-  CPU one.  ``"xla"`` is the plain einsum pair, as in the JAX package.
-* :func:`mha_reference` — the plain version: both products and the softmax
-  in float32 (the JAX ``"xla"`` branch, with an f32 softmax), output in
-  q's type.
+  CPU one.  ``"xla"`` is the plain einsum pair in the input type, as the
+  JAX package's (``ops/attention.py:138-141``).
+* :func:`mha_reference` — the plain version of K9: both products and the
+  softmax in float32, output in q's type.
 
 The JAX package's ``"auto"`` picks its flash kernel only on a TPU and only
 for ``t >= 256``; here every CUDA call takes the kernel, which masks keys
@@ -23,14 +23,14 @@ import torch
 from . import _cuda
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 72)
+_HEAD_DIMS = (16, 32, 64, 72)
 # natdiff_flash_attention(dtype, d, q, k, v, o, s_b, s_h, s_t, o_b, o_h,
 # o_t, B, H, T, scale_log2, stream)
 _FA_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
                 + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
                 + [ctypes.c_float, ctypes.c_void_p])
-_SPLASH = ("the splash kernel (K10) comes with the SD3 slice (ROADMAP.md, "
-           "Queue A, slice 6)")
+_SPLASH = ("the splash kernel (K10) comes with the tooling slice "
+           "(ROADMAP.md, Queue A, slice 9)")
 _UNPORTED = {"ring": "ring attention comes with the parallelism slice "
                      "(ROADMAP.md, Queue A, slice 8)",
              "splash": _SPLASH, "splash_interpret": _SPLASH}
@@ -42,6 +42,14 @@ def mha_reference(q, k, v, sm_scale: float):
                      k.to(torch.float32).transpose(-1, -2)) * sm_scale
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p, v.to(torch.float32)).to(q.dtype)
+
+
+def mha_xla(q, k, v, sm_scale: float):
+    """The JAX package's ``"xla"`` branch: both products and the softmax in
+    the input type, so for bf16 the scores and the probabilities are
+    rounded to bf16 as there.  For float32 it is :func:`mha_reference`."""
+    s = torch.matmul(q, k.transpose(-1, -2)) * sm_scale
+    return torch.matmul(torch.softmax(s, dim=-1), v)
 
 
 def _kernel_strides(q, k, v):
@@ -58,7 +66,7 @@ def _kernel_strides(q, k, v):
 def flash_attention(q, k, v, sm_scale: float):
     """Non-causal attention over ``[B, H, T, D]``, softmax in f32, output in
     q's type.  A CPU tensor takes :func:`mha_reference`; a CUDA tensor takes
-    kernel K9 (float32 or bfloat16, D in {64, 72}) or raises.
+    kernel K9 (float32 or bfloat16, D in {16, 32, 64, 72}) or raises.
 
     q, k and v may be strided views (the DiT splits one qkv tensor
     ``[B, T, 3, H, D]``); the kernel reads them in place when their strides
@@ -118,7 +126,7 @@ def mha(q, k, v, *, backend: str = "auto", sm_scale: float | None = None):
     if backend in ("auto", "flash"):
         return flash_attention(q, k, v, sm_scale)
     if backend == "xla":
-        return mha_reference(q, k, v, sm_scale)
+        return mha_xla(q, k, v, sm_scale)
     raise ValueError(f"unknown attention backend {backend!r}")
 
 
@@ -128,5 +136,5 @@ def mha_joint(q, k, v, *, split: int, sm_scale: float | None = None,
     """Split-softmax joint attention (``mha_joint`` of the JAX package):
     not ported yet."""
     raise NotImplementedError(
-        "mha_joint is not ported yet: it comes with the SD3 slice "
-        "(ROADMAP.md, Queue A, slice 6)")
+        "mha_joint is not ported yet: it comes with the tooling slice "
+        "(ROADMAP.md, Queue A, slice 9)")

@@ -4,6 +4,10 @@
 * :func:`conv3x3` — ``x [B,H,W,Cin] * w [3,3,Cin,Cout] + b``: kernel K2
   (``_conv_kernel`` on the TPU).  Any channel count: the model's 3->nf stem
   and nf->3 head go through it too.
+* :func:`conv3x3_tiled` — the same function as :func:`conv3x3` for large
+  maps, kernel K4 (``_conv_tiled_kernel``), which also serves K5
+  (``_conv_tiledew_kernel``): the two TPU kernels compute one function and
+  differ only in how VMEM is filled.
 * :func:`conv3x3_gn` — the fused resblock conv, kernel K3
   (``_conv_gn_kernel``): prologue ``silu(x * pre_w + pre_b)`` rounded to x's
   type (GroupNorm collapsed by ``ops.group_norm.gn_affine_coeffs``), the
@@ -11,10 +15,17 @@
   per-(sample, channel) sum and sum of squares of the f32 result, which the
   next GroupNorm needs.
 
-Both run one templated CUDA kernel (``csrc/conv3x3.cu``) for a CUDA tensor
-and :func:`conv3x3_gn_reference` for a CPU one.  The plain version
-accumulates in float32 like the kernel: the prologue output is rounded to
-x's type, then the conv runs on float32 copies of the operands.
+All run kernels of ``csrc/conv3x3.cu`` for a CUDA tensor and
+:func:`conv3x3_gn_reference` for a CPU one.  The plain version accumulates
+in float32 like the kernels: the prologue output is rounded to x's type,
+then the conv runs on float32 copies of the operands.
+
+The route predicates :func:`fused_resblock_ok` and :func:`pallas_conv_fits`
+are the JAX package's, copied with their constants (``:76``, ``:115-198``):
+those constants describe a TPU's VMEM, and serve here only so that every
+resblock takes the form the JAX package gives it (fused, or unfused with
+the whole-image or the halo-tiled conv).  Whether the card prefers other
+routes is a question for measurements, not for these numbers.
 """
 
 from __future__ import annotations
@@ -28,6 +39,9 @@ from . import _cuda
 
 _RSQRT2 = 0.7071067811865476
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# natdiff_conv3x3_tiled(dtype, x, w, b, y, B, H, W, Cin, Cout, stream)
+_TILED_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
 # natdiff_conv3x3(dtype, has_pre, has_skip, emit_stats, x, w, b, pre_w,
 # pre_b, skip, scale, y, s1, s2, B, H, W, Cin, Cout, stream)
 _CONV_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
@@ -81,8 +95,8 @@ def _check(x, w, b, pre, skip):
         raise ValueError(f"tensors on several devices: {devs}")
 
 
-def _launch(x, w, b, pre, skip, skip_rescale, emit_stats, what):
-    """Launch the CUDA kernel; raises on anything it does not take."""
+def _check_launch(x, w, b, pre, skip, what):
+    """Raise on anything the CUDA kernels do not take."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in _DTYPES:
@@ -97,9 +111,15 @@ def _launch(x, w, b, pre, skip, skip_rescale, emit_stats, what):
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{what} kernel takes contiguous tensors")
     bsz, hh, ww, cin = x.shape
-    cout = w.shape[3]
-    if bsz * hh * ww * max(cin, cout) >= 2 ** 31:
+    if bsz * hh * ww * max(cin, w.shape[3]) >= 2 ** 31:
         raise ValueError(f"{what}: tensor too large for the kernel's indexing")
+
+
+def _launch(x, w, b, pre, skip, skip_rescale, emit_stats, what):
+    """Launch the CUDA kernel K2 or K3."""
+    _check_launch(x, w, b, pre, skip, what)
+    bsz, hh, ww, cin = x.shape
+    cout = w.shape[3]
     y = torch.empty((bsz, hh, ww, cout), dtype=x.dtype, device=x.device)
     s1 = s2 = None
     if emit_stats:
@@ -133,6 +153,31 @@ def conv3x3(x, w, b=None):
     return y
 
 
+def conv3x3_tiled(x, w, b=None):
+    """:func:`conv3x3` for the large maps that the JAX package sends to its
+    halo-tiled kernels: the same function, from kernel K4 on a CUDA tensor
+    (contiguous float32 or bfloat16; raises on anything else) and from the
+    plain version on a CPU one."""
+    _check(x, w, b, None, None)
+    if x.device.type == "cpu":
+        return conv3x3_gn_reference(x, w, b)
+    _check_launch(x, w, b, None, None, "conv3x3_tiled")
+    bsz, hh, ww, cin = x.shape
+    if bsz > 65535:                         # the grid's z dimension
+        raise ValueError(f"conv3x3_tiled takes at most 65535 images, got "
+                         f"{bsz}")
+    cout = w.shape[3]
+    y = torch.empty((bsz, hh, ww, cout), dtype=x.dtype, device=x.device)
+    fn = _cuda.entry("conv3x3", "natdiff_conv3x3_tiled", _TILED_ARGTYPES)
+    with _cuda.on_device(x):
+        err = fn(_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
+                 None if b is None else b.data_ptr(), y.data_ptr(), bsz, hh,
+                 ww, cin, cout, _cuda.stream_ptr(x))
+    _cuda.check("conv3x3", err, "conv3x3_tiled")
+    conv3x3_tiled.launches += 1
+    return y
+
+
 def conv3x3_gn(x, w, b=None, *, pre=None, skip=None, skip_rescale=False,
                emit_stats=False):
     """Fused resblock conv: ``y = conv3x3(silu(x*pre_w + pre_b)) (+ b)
@@ -152,4 +197,98 @@ def conv3x3_gn(x, w, b=None, *, pre=None, skip=None, skip_rescale=False,
 
 
 conv3x3.launches = 0
+conv3x3_tiled.launches = 0
 conv3x3_gn.launches = 0
+
+
+# --- the JAX package's route predicates (ops/conv3x3.py:76, :115-198) -------
+# per-grid-step VMEM budget of the tiled variants, and the whole-image cap
+_VMEM_BUDGET = 10 * 1024 * 1024
+_VMEM_FIT = 12 * 1024 * 1024
+
+
+def _vmem_array_bytes(dims, itemsize):
+    """TPU VMEM bytes of an array blocked at ``dims``: the last dim padded
+    to 128 lanes, the one before to the sublane granule."""
+    *lead, s, l = dims
+    sub = 32 // itemsize
+    padded = -(-s // sub) * sub * -(-l // 128) * 128
+    for d in lead:
+        padded *= d
+    return padded * itemsize
+
+
+def _working_set_bytes(nb, hh, ww, cin, cout, itemsize, variant,
+                       fused=False, has_pre=False, has_skip=False):
+    """VMEM bytes of one whole-image grid step at block-batch ``nb``."""
+    halo = 0 if (variant == "valid9" or fused) else 2
+    per = (2 * _vmem_array_bytes((nb, hh + halo, ww + halo, cin), itemsize)
+           + 2 * _vmem_array_bytes((nb, hh, ww, cout), itemsize)
+           + _vmem_array_bytes((nb, hh, ww, cout), 4))
+    if fused and has_pre:
+        per += _vmem_array_bytes((nb, hh, ww, cin), 4)
+    if fused and has_skip:
+        per += 2 * _vmem_array_bytes((nb, hh, ww, cout), itemsize)
+    return per + _vmem_array_bytes((9, cin, cout), itemsize)
+
+
+def _tiled_working_set(th, ww, cin, cout, itemsize):
+    return ((th + 2) * ww * cin * itemsize + 2 * th * ww * cout * itemsize
+            + th * ww * cout * 4 + 9 * cin * cout * itemsize)
+
+
+def _tiledew_working_set(th, ww, cin, cout, itemsize):
+    return (2 * (th + 2) * ww * cin * itemsize
+            + 2 * th * ww * cout * itemsize + th * ww * cout * 4
+            + 9 * cin * cout * itemsize)
+
+
+def _pick_tile_rows(hh, ww, cin, cout, itemsize, variant="tiled"):
+    """Largest H-tile (a divisor of H, at least 2 tiles) whose tiled working
+    set fits the budget; None if even a 1-row tile does not."""
+    ws = _tiledew_working_set if variant == "tiledew" else _tiled_working_set
+    best = None
+    for th in range(1, hh // 2 + 1):
+        if hh % th == 0 and ws(th, ww, cin, cout, itemsize) <= _VMEM_BUDGET:
+            best = th
+    return best
+
+
+def pallas_conv_fits(shape, cout, itemsize, variant="valid9", *,
+                     fused=False, has_pre=False, has_skip=False) -> bool:
+    """True when the JAX package's conv ``variant`` takes ``shape -> cout``
+    (one image's working set within the TPU's VMEM cap)."""
+    _, hh, ww, cin = shape
+    if variant in ("tiled", "tiledew"):
+        return _pick_tile_rows(hh, ww, cin, cout, itemsize,
+                               variant) is not None
+    return _working_set_bytes(1, hh, ww, cin, cout, itemsize, variant,
+                              fused=fused, has_pre=has_pre,
+                              has_skip=has_skip) <= _VMEM_FIT
+
+
+def fused_resblock_ok(x, out_ch: int, *, shape=None) -> bool:
+    """The JAX gate of the fused-resblock form under
+    ``NATDIFF_PALLAS_CONV=2`` (the form the port runs where it may): both
+    channel counts multiples of 128 and the worst-case fused working set
+    within the cap.  ``shape`` overrides x's shape (the resampling blocks'
+    convs see the resampled map)."""
+    shape = tuple(shape or x.shape)
+    cin = shape[-1]
+    if cin % 128 or out_ch % 128:
+        return False
+    worst = (shape[0], shape[1], shape[2], max(cin, out_ch))
+    return pallas_conv_fits(worst, out_ch, x.dtype.itemsize, "valid9",
+                            fused=True, has_pre=True, has_skip=True)
+
+
+def large_map(x, cout: int) -> bool:
+    """True where the JAX package's unfused ``PConv3x3`` leaves its
+    whole-image kernel (the default ``taps9`` variant does not fit) for the
+    halo-tiled one: channel counts multiples of 128 and a large map.  The
+    port then runs :func:`conv3x3_tiled` (also where JAX's tiled variant
+    would not fit either and JAX falls back to XLA), else :func:`conv3x3`."""
+    cin = x.shape[-1]
+    return (cin % 128 == 0 and cout % 128 == 0
+            and not pallas_conv_fits(tuple(x.shape), cout, x.dtype.itemsize,
+                                     "taps9"))

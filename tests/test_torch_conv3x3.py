@@ -118,3 +118,52 @@ def test_conv3x3_rejects_bad_arguments():
     with pytest.raises(ValueError):
         conv3x3_gn(x, torch.zeros(3, 3, 8, 8),
                    pre=(torch.zeros(2, 8), torch.zeros(2, 8)))
+
+
+@pytest.mark.parametrize("variant", ["tiled", "tiledew"])
+@pytest.mark.parametrize("shape", [
+    (2, 8, 8, 128, 128),
+    (1, 12, 4, 128, 256),     # tall/narrow, channel-raising
+    (3, 6, 5, 128, 128),      # odd W, batch 3
+])
+def test_conv3x3_tiled_matches_pallas(shape, variant):
+    """The plain version of K4 (which serves both TPU variants) against
+    JAX's halo-tiled kernels in interpret mode, at the shapes of
+    tests/test_conv3x3.py's tiled test."""
+    from naturaldiffusion_tpu.ops.conv3x3 import conv3x3_pallas
+    from naturaldiffusion_tpu_torch.ops.conv3x3 import conv3x3_tiled
+    b, h, w, ci, co = shape
+    rng = np.random.default_rng(h * w + co)
+    x, wt, bias, _, _ = _inputs(rng, b, h, w, ci, co)
+    want = conv3x3_pallas(jnp.asarray(x), jnp.asarray(wt), jnp.asarray(bias),
+                          variant=variant, interpret=True)
+    before = conv3x3_tiled.launches
+    got = conv3x3_tiled(_t(x), _t(wt), _t(bias))
+    assert conv3x3_tiled.launches == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_route_predicates_match_jax(monkeypatch):
+    """``pallas_conv_fits`` and ``fused_resblock_ok`` (with
+    NATDIFF_PALLAS_CONV=2 on the JAX side) give the JAX package's answers
+    over the maps and channel counts of the NCSN++ configs."""
+    from naturaldiffusion_tpu.ops import conv3x3 as jc
+    from naturaldiffusion_tpu_torch.ops import conv3x3 as tc
+    monkeypatch.setenv("NATDIFF_PALLAS_CONV", "2")
+    for hw in (4, 8, 16, 32, 64, 128, 256, 512):
+        for cin, cout in ((128, 128), (256, 128), (128, 256), (384, 256),
+                          (512, 256), (256, 256), (3, 128), (640, 512)):
+            for item, jdt, tdt in ((2, jnp.bfloat16, torch.bfloat16),
+                                   (4, jnp.float32, torch.float32)):
+                shape = (2, hw, hw, cin)
+                for v in ("valid9", "taps9", "tiled", "tiledew"):
+                    assert tc.pallas_conv_fits(shape, cout, item, v) == \
+                        jc.pallas_conv_fits(shape, cout, item, v)
+                jx = jnp.zeros((1, 1, 1, 1), jdt)
+                tx = torch.zeros(1, 1, 1, 1, dtype=tdt)
+                for up in (None, 2 * hw):
+                    rs = None if up is None else (2, up, up, cin)
+                    assert tc.fused_resblock_ok(
+                        tx, cout, shape=rs or shape) == \
+                        jc.fused_resblock_ok(jx, cout, shape=rs or shape)

@@ -260,3 +260,66 @@ def test_load_jax_params_raises_on_a_dit_mismatch(pair):
     missing = {k: v for k, v in params.items() if k != "final_layer"}
     with pytest.raises(KeyError, match="final_layer"):
         load_jax_params(model, missing)
+
+
+def test_small_dits_are_the_jax_apps(monkeypatch):
+    """``bench_dit.TOY`` and ``validate_dit.SMALL`` are the JAX apps' small
+    DiTs (2 heads of 32, 4 heads of 16), and kernel K9 takes their head
+    dims."""
+    import argparse
+    from naturaldiffusion_tpu.apps import bench_dit as jax_bench_dit
+    from naturaldiffusion_tpu.apps import validate_dit as jax_validate_dit
+    from naturaldiffusion_tpu_torch.ops.attention import _HEAD_DIMS
+    seen = []
+
+    class Built(Exception):
+        pass
+
+    def record(config):         # the app's model, recorded, then stop
+        seen.append(config)
+        raise Built
+    monkeypatch.setattr(jax_bench_dit, "DiT", record)
+    with pytest.raises(Built):
+        jax_bench_dit.main(["--toy", "--flops-only"])
+    monkeypatch.setattr(jax_validate_dit, "DiT", record)
+    with pytest.raises(Built):
+        jax_validate_dit.build_model(argparse.Namespace(
+            small=True, model="DiT-XL/2", ckpt=None))
+    small = seen[1]
+    fields = ("input_size", "patch_size", "in_channels", "hidden_size",
+              "depth", "num_heads", "num_classes")
+    for mine, ref in ((bench_dit.TOY, seen[0]), (validate_dit.SMALL, small)):
+        assert [getattr(mine, f) for f in fields] == [getattr(ref, f)
+                                                      for f in fields]
+        assert mine.hidden_size // mine.num_heads in _HEAD_DIMS
+    assert bench_dit.TOY.hidden_size // bench_dit.TOY.num_heads == 32
+    assert validate_dit.SMALL.hidden_size // validate_dit.SMALL.num_heads == 16
+
+
+# bf16 params and inputs, port against JAX: the measured control is the
+# distance of JAX's bf16 forward from its f32 forward on the same weights
+# (7.3e-3 relative L2).  JAX's attention on the CPU runs its "xla" branch
+# in bf16, the port's in f32 (kernel K9's plain version), and sums run in
+# other orders, so the two bf16 runs each lie about the control from f32
+# and up to sqrt(2) x the control from each other (measured: 0.85x the
+# control from JAX's bf16 run, 0.96x from its f32 run).  Bound at 1.5x the
+# control, against both; a wrong layer moves the output by O(1)
+BF16_CONTROL_FACTOR = 1.5
+
+
+def test_bf16_forward_matches_jax(pair):
+    jm, params, _, x, t, y = pair
+    p16 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16),
+                                 params)
+    want32 = np.asarray(jm.apply({"params": params}, x, t, y), np.float32)
+    want16 = np.asarray(jm.apply({"params": p16}, jnp.asarray(x, jnp.bfloat16),
+                                 t, y), np.float32)
+    tm = load_jax_params(dit.DiT(dit.DiTConfig(**CFG), device="cpu"),
+                         params, dtype=torch.bfloat16)
+    with torch.no_grad():
+        got16 = tm(_t(x).bfloat16(), _t(t), _t(y).long()).float().numpy()
+    control = rel_l2(want16, want32)
+    assert 1e-3 < control < 5e-2
+    assert np.isfinite(got16).all()
+    assert rel_l2(got16, want16) <= BF16_CONTROL_FACTOR * control
+    assert rel_l2(got16, want32) <= BF16_CONTROL_FACTOR * control

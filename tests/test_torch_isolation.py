@@ -48,6 +48,23 @@ q = torch.randn(1, 2, 16, 64)
 assert torch.isfinite(mha(q, q, q)).all()
 w_i8, s_w = quantize_weight(torch.randn(128, 128))
 assert torch.isfinite(matmul_wdq(torch.randn(16, 128), w_i8, s_w.flatten())).all()
+from naturaldiffusion_tpu_torch import configs
+from naturaldiffusion_tpu_torch.sde import get_score_fn
+from naturaldiffusion_tpu_torch.samplers.pc import get_pc_sampler
+from naturaldiffusion_tpu_torch.scaler import get_inverse_scaler
+import dataclasses
+cfg = configs.get_config("ve/celebahq_256_ncsnpp_continuous")
+small = dataclasses.replace(cfg.model, image_size=16, nf=16, ch_mult=(1, 2),
+                            num_res_blocks=1, attn_resolutions=(8,))
+ve = NCSNpp(small, device="cpu")
+sde = configs.get_sde(cfg)
+sde = type(sde)(sigma_min=sde.sigma_min, sigma_max=sde.sigma_max, N=3)
+sampler = get_pc_sampler(sde, get_score_fn(sde, ve), (1, 16, 16, 3),
+                         predictor="reverse_diffusion", corrector="langevin",
+                         snr=cfg.sampling.snr, device="cpu")
+img, nfe = sampler(torch.Generator().manual_seed(0))
+assert torch.isfinite(get_inverse_scaler(small.centered)(img)).all()
+assert nfe == 6
 bad = sorted(k for k in sys.modules
              if k in ("jax", "naturaldiffusion_tpu")
              or k.startswith(("jax.", "jaxlib", "naturaldiffusion_tpu.")))
@@ -86,6 +103,17 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     from naturaldiffusion_tpu_torch.apps.cifar10_ni import main
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--num", "1"])
+
+
+def test_ve_entry_points_refuse_a_missing_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from naturaldiffusion_tpu_torch import configs
+    from naturaldiffusion_tpu_torch.samplers.pc import get_pc_sampler
+    from naturaldiffusion_tpu_torch.sde import VESDE
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NCSNpp(configs.get_config("ve/cifar10_ncsnpp_continuous").model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_pc_sampler(VESDE(N=2), lambda x, t: x, (1, 8, 8, 3))
 
 
 def test_dit_entry_points_refuse_a_missing_card(monkeypatch):

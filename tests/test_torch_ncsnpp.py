@@ -96,14 +96,79 @@ def test_walk_matches_the_jax_names(pair):
     assert model.layers[f"m{len(params) - 1}"].kernel.shape == (3, 3, 128, 3)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("resblock_type", "ddpm"), ("fir", True), ("progressive", "output_skip"),
-    ("progressive_input", "residual"), ("embedding_type", "fourier"),
-    ("scale_by_sigma", True)])
+@pytest.mark.parametrize("field,value", [("resblock_type", "ddpm")])
 def test_unported_options_raise(field, value):
     cfg = NCSNppConfig(**dict(SMALL, **{field: value}))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         NCSNpp(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("fir", True), ("progressive", "output_skip"),
+    ("progressive_input", "residual"), ("embedding_type", "fourier"),
+    ("scale_by_sigma", True)])
+def test_ported_options_match_jax(field, value):
+    """Each option of the VE slice on the small CIFAR walk: the JAX tree
+    loads, and the f32 forward agrees (the timestep 10 x sigma for the
+    Fourier embedding, an index into the sigma table otherwise)."""
+    kw = dict(SMALL, **{field: value})
+    sigmas = np.linspace(0.01, 50.0, 1000).astype(np.float32)
+    jm = JaxNCSNpp(config=JaxConfig(**kw), sigmas=tuple(sigmas.tolist()))
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 8, 8, 3)).astype(np.float32)
+    t = (np.array([2.5, 0.7], np.float32) if value == "fourier"
+         else np.array([999, 420], np.int32))
+    with jax.enable_x64(False):
+        shapes = jax.eval_shape(
+            lambda k: jm.init(k, jnp.asarray(x), jnp.asarray(t))["params"],
+            jax.random.PRNGKey(0))
+    params = random_flax_params(shapes, np.random.default_rng(5))
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x),
+                               jnp.asarray(t)))
+    tm = load_jax_params(NCSNpp(NCSNppConfig(**kw), sigmas=sigmas,
+                                device="cpu"), params)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), torch.from_numpy(t)).numpy()
+    assert np.isfinite(got).all() and np.abs(want).max() > 0.01
+    assert rel_l2(got, want) < TOL
+
+
+# bf16 params and input, port against JAX: the measured control is the
+# distance of the JAX bf16 forward from its f32 forward on the same
+# weights (9.0e-3 relative L2 here).  The two packages' bf16 runs round at
+# other places (the port's fused form rounds the GN+SiLU prologue where
+# JAX's XLA route rounds the GroupNorm output; sums run in other orders),
+# so each lies about the control from f32, and with independent roundings
+# up to sqrt(2) x the control from the other (measured: 1.06x the control
+# from JAX's bf16 run, 0.86x from its f32 run).  Bound at 1.5x the
+# control, against both; a wrong layer moves the output by O(1)
+BF16_CONTROL_FACTOR = 1.5
+
+
+def test_bf16_forward_matches_jax(pair, monkeypatch):
+    """The CIFAR walk in bf16 through both packages: JAX's XLA path (the
+    same maths as its fused-resblock path, checked in f32 above) and the
+    port's plain versions on the CPU."""
+    jm, params, x, t, _ = pair
+    monkeypatch.delenv("NATDIFF_PALLAS_CONV", raising=False)
+
+    def run(dtype):
+        p = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), params)
+        return np.asarray(jax.jit(
+            lambda p, a, b: jm.apply({"params": p}, a, b))(
+            p, jnp.asarray(x, dtype), jnp.asarray(t)), np.float32)
+
+    want32, want16 = run(jnp.float32), run(jnp.bfloat16)
+    tm = load_jax_params(NCSNpp(NCSNppConfig(**SMALL), device="cpu"), params,
+                         dtype=torch.bfloat16)
+    with torch.no_grad():
+        got16 = tm(torch.from_numpy(x).bfloat16(),
+                   torch.from_numpy(t)).float().numpy()
+    control = rel_l2(want16, want32)
+    assert 1e-3 < control < 5e-2
+    assert np.isfinite(got16).all()
+    assert rel_l2(got16, want16) <= BF16_CONTROL_FACTOR * control
+    assert rel_l2(got16, want32) <= BF16_CONTROL_FACTOR * control
 
 
 def test_timestep_embedding_matches_jax():
