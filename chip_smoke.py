@@ -43,6 +43,18 @@ printed as one line with its numbers and seconds as it ends:
            counts, img/s, MFU, the card's busy share, and the samples
            against an f32 run of the plain versions on the card beside two
            controls, and the kernels in f32 against the same run.
+  tool_kernels  kernel K10 (splash attention, with its logsumexp) against
+           its plain version at SD3's joint lengths, ``mha_joint`` against
+           one full softmax per row, kernel K8 (fused leaky ReLU) bit for
+           bit against its plain version, and K9 at SD3's length; each timed
+           as in ``kernels``.  K8's path: its wrapper at the level-0
+           activations of the CIFAR and VE models (no app calls K8, as in
+           the JAX package).
+  attention_bench  ``apps.bench_attention`` at its defaults (t = 4096,
+           4250, 4429; batch 2, 24 heads of 64, bf16): the path of K10.
+  tool_trace    ``apps.bench_dit --toy --steps 10 --trace --count-flops``
+           on the card, its trace read by ``utils.trace_summary``;
+           ``apps.bench_conv --shapes 1``.
 
 Any failure raises and exits non-zero.  The last two lines are the kernels
 JSON and ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -127,6 +139,26 @@ DIT_W8_FORWARD_TOL = 2e-2
 # plain versions in bf16 on the card; the kernels with the time 1 % off
 # read 0.36; 0.1 sits 2.8x above the sound runs and 3.6x below that fault
 DIT_SLICE_TOL = 1e-1
+
+# SD3-medium's joint attention: 24 heads of 64 over 4096 latent tokens and
+# 154 context tokens, batch 2
+SD3_B, SD3_H, SD3_LAT, SD3_CTX, SD3_D = 2, 24, 4096, 154, 64
+# K10's logsumexp in f32: the hi/lo bf16 split keeps ~16 bits of each
+# operand, so scores of magnitude ~1 are off by ~1e-5; absolute
+LSE_TOL = 1e-4
+# mha_joint against one f32 softmax per row, relative L2: f32 pieces and
+# the f32 kernel (~1e-5)
+JOINT_F32_TOL = 1e-4
+# the same in bf16: the kernel block and the result round to bf16 (2^-9
+# each) and P enters the products in bf16; the CPU test measured JAX's own
+# bf16 split softmax at 3.8e-3 from its f32 run; relative L2
+JOINT_BF16_TOL = 1e-2
+# K8 at the level-0 activations of the CIFAR model (batch 64) and the VE
+# model (batch 4), 900 rows (not a multiple of the TPU kernel's 512-row
+# tile), and rows of 3 and 12 channels (shorter than, or not a multiple of,
+# a 16-byte vector: the kernel's scalar form)
+K8_PATH_SHAPES = ((64, 32, 32, 128), (4, 256, 256, 128))
+K8_CHECK_SHAPES = K8_PATH_SHAPES + ((3, 300, 128), (5, 7, 3), (2, 9, 12))
 
 T0 = time.perf_counter()
 
@@ -1171,9 +1203,10 @@ def phase_ve_kernels(model_bf16, details):
             bound_by=("operations" if flops / PEAK_FLOPS["torch.bfloat16"]
                       >= tot["bytes"] / HBM_BYTES_PER_S else "bytes"),
             library_ms=tot["library_ms"])
-        if also:
-            row["also_replaces"] = also
         out.append(row)
+        if also:
+            out.append(dict(row, name="conv3x3_tiledew", replaces=also,
+                            served_by="conv3x3_tiled"))
         details[f"ve_{kind}_per_forward"] = dict(
             launches=sum(r["per_forward"] for r in rows[kind]), flops=flops,
             **tot)
@@ -1378,6 +1411,300 @@ def phase_ve_slice(cfg, model_f32, sigs, smi):
     return counts
 
 
+# ------------------------------------------------------------ tooling path
+
+def check_abs(what, got, want, atol):
+    """max |got - want| <= atol; returns it."""
+    import torch
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.isfinite(got.float()).all() or err > atol:
+        raise AssertionError(f"{what}: max abs err {err:.3e} over {atol:g}")
+    return err
+
+
+def attn_cost(b, h, t, d, itemsize):
+    flops = 4.0 * b * h * t * t * d
+    nbytes = 4.0 * b * h * t * d * itemsize            # q, k, v, o
+    bound = max(flops / PEAK_FLOPS["torch.bfloat16"],
+                nbytes / HBM_BYTES_PER_S)
+    return flops, nbytes, bound * 1e3, ("operations" if flops / PEAK_FLOPS[
+        "torch.bfloat16"] >= nbytes / HBM_BYTES_PER_S else "bytes")
+
+
+def phase_tool_kernels(details):
+    """K10 and ``mha_joint`` at SD3's lengths, K8 at the level-0
+    activations, K9 at SD3's length: checked, then timed in bf16.  Returns
+    the kernels' rows and K8's path counts."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from naturaldiffusion_tpu_torch.ops import attention as A
+    from naturaldiffusion_tpu_torch.ops import fused_act as FA
+
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    b, h, d = SD3_B, SD3_H, SD3_D
+    t_sd3 = SD3_LAT + SD3_CTX
+    scale = 1.0 / math.sqrt(d)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def sdpa(q, k, v, sc):
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v, scale=sc)
+
+    # K10 against its plain version, output and logsumexp
+    k10 = {}
+    for t in (SD3_LAT, t_sd3):
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            q, k, v = (rn(b, h, t, d).to(dtype) for _ in range(3))
+            got, lse = A.splash_attention(q, k, v, scale, save_residuals=True)
+            want, lse_want = A.splash_reference(A.prescale(q, scale), k, v,
+                                                save_residuals=True)
+            key = f"t{t}_{str(dtype).split('.')[-1]}"
+            row = dict(zip(("max_abs_err", "max_rel_err"), check_close(
+                f"K10 splash {key}", got, want, tol)))
+            if dtype == torch.float32:
+                row["max_abs_err"] = check_abs(f"K10 splash {key}", got,
+                                               want, F32_TOL)
+                row["lse_err"] = check_abs(f"K10 lse {key}", lse, lse_want,
+                                           LSE_TOL)
+            else:
+                row["lse_err"] = check_close(f"K10 lse {key}", lse,
+                                             lse_want, F32_TOL)[0]
+            # the entry without the logsumexp runs the other instance
+            plain_out = A.splash_attention(q, k, v, scale)
+            row["no_lse_err"] = check_close(f"K10 splash {key} without lse",
+                                            plain_out, want, tol)[0]
+            row["no_lse_equal"] = bool(torch.equal(plain_out, got))
+            k10[key] = row
+    del q, k, v, got, want, lse, lse_want, plain_out
+
+    # mha_joint at SD3's split against one softmax per row (f32 and bf16),
+    # then timed against mha through K9, which masks past t by index
+    joint = {}
+    for dtype, tol in ((torch.float32, JOINT_F32_TOL),
+                       (torch.bfloat16, JOINT_BF16_TOL)):
+        q, k, v = (rn(b, h, t_sd3, d).to(dtype) for _ in range(3))
+        A.splash_attention.launches = 0
+        got = A.mha_joint(q, k, v, split=SD3_LAT)
+        if A.splash_attention.launches != 1:
+            raise AssertionError("mha_joint did not launch K10 once")
+        err = rel_l2(got, A.mha_reference(q, k, v, scale))
+        if not torch.isfinite(got).all() or err > tol:
+            raise AssertionError(f"mha_joint {dtype}: rel L2 {err:.3e} > "
+                                 f"{tol:g}")
+        joint[str(dtype).split(".")[-1]] = dict(rel_l2=err, tol=tol)
+    joint["timing_bf16"] = dict(
+        mha_joint_ms=timer(lambda: A.mha_joint(q, k, v, split=SD3_LAT)),
+        mha_flash_ms=timer(lambda: A.mha(q, k, v)),
+        mha_splash_ms=timer(lambda: A.mha(q, k, v, backend="splash")))
+    jt = joint["timing_bf16"]
+    jt["faster"] = min(("mha_joint", "mha_flash", "mha_splash"),
+                       key=lambda n: jt[f"{n}_ms"])
+    # where mha_joint's time goes: device time by kernel of one call
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        A.mha_joint(q, k, v, split=SD3_LAT)
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and e.self_device_time_total > 0),
+                  key=lambda e: -e.self_device_time_total)
+    jt["profiled_device_ms"] = sum(e.self_device_time_total
+                                   for e in kern) / 1e3
+    jt["profiled_top"] = [(e.key[:60], e.count,
+                           e.self_device_time_total / 1e3) for e in kern[:8]]
+
+    # K10 and K9 timed at SD3's length in bf16 (q, k, v from above)
+    qs = A.prescale(q, scale)
+    flops, nbytes, bound, bound_by = attn_cost(b, h, t_sd3, d, 2)
+    k10_time = dict(
+        ms=timer(lambda: A._splash(qs, k, v, False)),
+        wrapper_ms=timer(lambda: A.splash_attention(q, k, v, scale)),
+        plain_ms=timer(lambda: A.splash_reference(qs, k, v)),
+        library_ms=timer(lambda: sdpa(qs, k, v, 1.0)),
+        bound_ms=bound, bound_by=bound_by, flops=flops, bytes=nbytes)
+    k9_long = dict(
+        ms=timer(lambda: A.flash_attention(q, k, v, scale)),
+        plain_ms=timer(lambda: A.mha_reference(q, k, v, scale)),
+        library_ms=timer(lambda: sdpa(q, k, v, scale)),
+        bound_ms=bound, bound_by=bound_by,
+        shape=[b, h, t_sd3, d],
+        err=check_close("K9 at SD3's length", A.flash_attention(
+            q, k, v, scale), A.mha_reference(q, k, v, scale), BF16_TOL)[0])
+    for r in (k10_time, k9_long):
+        r["tflops"] = flops / r["ms"] / 1e9
+    del q, k, v, qs, got
+
+    # K8: the path (the wrapper at the two level-0 activations), counted
+    FA.fused_leaky_relu_pallas.launches = 0
+    for shape in K8_PATH_SHAPES:
+        x = rn(*shape).to(torch.bfloat16)
+        FA.fused_leaky_relu_pallas(x, (0.1 * rn(shape[-1])).to(x.dtype))
+    torch.cuda.synchronize()
+    k8_count = {"fused_leaky_relu_pallas":
+                FA.fused_leaky_relu_pallas.launches}
+    if k8_count["fused_leaky_relu_pallas"] != len(K8_PATH_SHAPES):
+        raise AssertionError(f"K8 path launches {k8_count}")
+    # then bit for bit against the plain version, and timed on the path's
+    # shapes in bf16
+    k8 = {}
+    for shape in K8_CHECK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (3.0 * rn(*shape)).to(dtype)
+            bias = rn(shape[-1]).to(dtype)
+            got = FA.fused_leaky_relu_pallas(x, bias)
+            want = FA.fused_leaky_relu(x, bias)
+            key = f"{list(shape)}_{str(dtype).split('.')[-1]}"
+            if got.dtype != dtype or not torch.equal(got, want):
+                n = int((got != want).sum())
+                raise AssertionError(f"K8 {key}: {n} elements differ from "
+                                     f"the plain version")
+            row = dict(bit_exact=True)
+            if shape in K8_PATH_SHAPES and dtype == torch.bfloat16:
+                nb = 2 * 2 * x.numel() + 2 * shape[-1]
+                row.update(
+                    ms=timer(lambda: FA.fused_leaky_relu_pallas(x, bias)),
+                    plain_ms=timer(lambda: FA.fused_leaky_relu(x, bias)),
+                    bytes=nb, bound_ms=nb / HBM_BYTES_PER_S * 1e3)
+                row["gb_per_s"] = nb / row["ms"] / 1e6
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+            k8[key] = row
+    k8_timed = [r for r in k8.values() if "ms" in r]
+
+    details["tool_kernels"] = dict(splash=k10, splash_time=k10_time,
+                                   mha_joint=joint, fused_act=k8,
+                                   flash_sd3=k9_long)
+    out = [
+        dict(name="splash_attention", route="cuda",
+             source="naturaldiffusion_tpu_torch/csrc/attention.cu",
+             replaces="naturaldiffusion_tpu/ops/attention.py:66",
+             also_replaces="naturaldiffusion_tpu/ops/attention.py:146",
+             max_abs_err=max(r["max_abs_err"] for r in k10.values()),
+             max_rel_err=max(r["max_rel_err"] for r in k10.values()),
+             lse_max_abs_err=max(r["lse_err"] for r in k10.values()),
+             **{f: k10_time[f] for f in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+             note=f"per launch at [{b}, {h}, {t_sd3}, {d}] bf16; library: "
+                  f"SDPA flash on the pre-scaled q, scale 1"),
+        dict(name="fused_leaky_relu", route="cuda",
+             source="naturaldiffusion_tpu_torch/csrc/fused_act.cu",
+             replaces="naturaldiffusion_tpu/ops/fused_act.py:52",
+             max_abs_err=0.0, max_rel_err=0.0,
+             **{f: sum(r[f] for r in k8_timed)
+                for f in ("ms", "plain_ms", "bound_ms")},
+             bound_by="bytes", library_ms=None,
+             note="sum over the fused_act path's two bf16 calls; no single "
+                  "PyTorch call computes scale * leaky_relu(x + bias)"),
+    ]
+    for key, r in k8.items():
+        if "ms" in r:
+            print(f"  fused_leaky_relu {key}: {r['ms']:.4f} ms "
+                  f"({r['gb_per_s']:.0f} GB/s, {100 * r['bound_share']:.1f}% "
+                  f"of bound), plain {r['plain_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.4f}", flush=True)
+    for name, r in (("splash_attention", k10_time),
+                    ("flash_attention", k9_long)):
+        print(f"  {name} [{b}, {h}, {t_sd3}, {d}] bf16: {r['ms']:.4f} ms "
+              f"({r['tflops']:.1f} TFLOP/s), plain {r['plain_ms']:.4f}, "
+              f"SDPA flash {r['library_ms']:.4f}, bound {r['bound_ms']:.4f}",
+              flush=True)
+    phase("tool_kernels", t0,
+          checks={"splash_attention": len(k10), "mha_joint": 2,
+                  "fused_leaky_relu": len(k8)},
+          tolerances=dict(f32=F32_TOL, bf16=BF16_TOL, lse=LSE_TOL,
+                          joint_f32=JOINT_F32_TOL,
+                          joint_bf16=JOINT_BF16_TOL, fused_act="bit-exact"),
+          splash=k10, mha_joint=joint,
+          splash_attention_per_launch={f: k10_time[f] for f in (
+              "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
+              "tflops")},
+          flash_attention_sd3={f: k9_long[f] for f in (
+              "ms", "plain_ms", "library_ms", "bound_ms", "tflops")},
+          fused_act_path_launches=k8_count)
+    return out, k8_count, k9_long
+
+
+def phase_attention_bench():
+    """``apps.bench_attention`` at its defaults, the path of K10; the K9
+    and K10 counters read around it."""
+    import contextlib as cl
+    import io
+    from naturaldiffusion_tpu_torch.apps import bench_attention
+    from naturaldiffusion_tpu_torch.ops import attention as A
+
+    t0 = time.perf_counter()
+    counters = {"splash_attention": A.splash_attention,
+                "flash_attention": A.flash_attention}
+    zero_counts(counters)
+    buf = io.StringIO()
+    with cl.redirect_stdout(buf):
+        rc = bench_attention.main([])
+    counts = read_counts(counters)
+    rows = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    for ln in buf.getvalue().splitlines():
+        print("  " + ln, flush=True)
+    # per length and backend: a warm-up chain and 3 timed chains of 20
+    # calls, and one finite check
+    per = 3 * (4 * 20 + 1)
+    if rc != 0 or [r["t"] for r in rows] != [4096, 4250, 4429] or counts != {
+            "splash_attention": per, "flash_attention": per}:
+        raise AssertionError(f"attention_bench: rc {rc}, launches {counts}")
+    phase("attention_bench", t0, rows=rows, launches=counts)
+    return counts, rows
+
+
+def phase_tool_trace():
+    """``bench_dit --toy --trace --count-flops`` on the card and the trace
+    summary of its trace; ``bench_conv --shapes 1``."""
+    import contextlib as cl
+    import io
+    import shutil
+    import tempfile
+    from naturaldiffusion_tpu_torch.apps import bench_conv, bench_dit
+    from naturaldiffusion_tpu_torch.utils import trace_summary
+
+    t0 = time.perf_counter()
+    logdir = tempfile.mkdtemp(prefix="natdiff_trace_")
+    try:
+        buf = io.StringIO()
+        with cl.redirect_stdout(buf):
+            rc = bench_dit.main(["--toy", "--steps", "10", "--trace",
+                                 logdir, "--count-flops"])
+        dit = json.loads(buf.getvalue().splitlines()[-1])
+        total_us, fam = trace_summary.summarize(logdir)
+        buf = io.StringIO()
+        with cl.redirect_stdout(buf):
+            trace_summary.main([logdir, "--top", "6"])
+        summary = buf.getvalue().splitlines()
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    if rc != 0 or total_us <= 0 or "flash_kernel" not in fam:
+        raise AssertionError(f"tool_trace: rc {rc}, device total "
+                             f"{total_us} us, families {sorted(fam)}")
+    if dit["flops_source"] != "counted" or dit["flops_per_fwd"] != (
+            bench_dit.flops_per_forward(bench_dit.TOY, 1, True)):
+        raise AssertionError(f"tool_trace: counted FLOPs {dit}")
+    for ln in summary:
+        print("  " + ln, flush=True)
+    buf = io.StringIO()
+    with cl.redirect_stdout(buf):
+        rc = bench_conv.main(["--shapes", "1"])
+    conv = json.loads(buf.getvalue().splitlines()[-1])
+    print("  " + json.dumps(conv), flush=True)
+    if rc != 0 or conv["best_variant"] not in conv["serves"]:
+        raise AssertionError(f"bench_conv: rc {rc}, {conv}")
+    phase("tool_trace", t0, bench_dit_toy=dit, device_total_us=total_us,
+          families=len(fam), flash_kernel_us=fam["flash_kernel"],
+          bench_conv=conv)
+    return dit, conv
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1430,20 +1757,34 @@ def main(argv=None) -> int:
     ve_launches = phase_ve_slice(ve_cfg, ve32, ve_sigs, smi)
     del ve32
 
+    tool_kernels, k8_launches, k9_long = phase_tool_kernels(details)
+    kernels += tool_kernels
+    attn_launches, attn_rows = phase_attention_bench()
+    dit_toy, conv_row = phase_tool_trace()
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["sd3_length"] = {f: k9_long[f] for f in (
+                "shape", "ms", "plain_ms", "library_ms", "bound_ms")}
+
     by_path = {"cifar_slice": launches,
                "dit_slice": dit_runs["float"]["launches"],
                "dit_slice_w8": dit_runs["w8"]["launches"],
-               "ve_slice": ve_launches}
+               "ve_slice": ve_launches,
+               "attention_bench": attn_launches,
+               "fused_act": k8_launches}
     # each kernel's count from the path that exercises it: K1-K3 the
-    # CIFAR slice, K9 the DiT slice, K7 the DiT slice under w8, K4 and K6
-    # the VE slice
+    # CIFAR slice, K9 the DiT slice, K7 the DiT slice under w8, K4 (serving
+    # K5) and K6 the VE slice, K10 the attention bench, K8 its own path
     main_path = {"weighted_sum": ("cifar_slice", "fused_weighted_sum"),
                  "conv3x3": ("cifar_slice", "conv3x3"),
                  "conv3x3_gn": ("cifar_slice", "conv3x3_gn"),
                  "flash_attention": ("dit_slice", "flash_attention"),
                  "qmatmul": ("dit_slice_w8", "matmul_wdq"),
                  "conv3x3_tiled": ("ve_slice", "conv3x3_tiled"),
-                 "group_norm": ("ve_slice", "fused_group_norm")}
+                 "conv3x3_tiledew": ("ve_slice", "conv3x3_tiled"),
+                 "group_norm": ("ve_slice", "fused_group_norm"),
+                 "splash_attention": ("attention_bench", "splash_attention"),
+                 "fused_leaky_relu": ("fused_act", "fused_leaky_relu_pallas")}
     for k in kernels:
         path, fn = main_path[k["name"]]
         k["launches"] = by_path[path][fn]
@@ -1454,14 +1795,17 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path")
-    extras = ("also_replaces", "head_dims_checked")
+    extras = ("also_replaces", "served_by", "head_dims_checked",
+              "lse_max_abs_err", "sd3_length", "note")
     kernels = [dict({k: kern[k] for k in keys},
                     **{k: kern[k] for k in extras if k in kern})
                for kern in kernels]
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(dict(card=smi, img_per_s=ips, dit=dit_runs,
-                           kernels=kernels, details=details), fh, indent=1)
+                           attention_bench=attn_rows, bench_dit_toy=dit_toy,
+                           bench_conv=conv_row, kernels=kernels,
+                           details=details), fh, indent=1)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,10 +12,15 @@ runs every ``QDense`` that passes ``qmatmul_ok`` through the W8A16 kernel.
 
     python -m naturaldiffusion_tpu_torch.apps.bench_dit [--steps 50] [--batch 1]
 
-Prints one JSON line.  ``flops_per_fwd`` is counted from the config's
-shapes (the matrix products and attention of one CFG forward); the MFU
-divides it by the H100's published dense bf16 peak.  ``--trace`` and
-``--flops-only`` are not ported yet (ROADMAP.md, Queue A, slice 9).
+Prints one JSON line.  ``flops_per_fwd`` comes from the config's shapes
+(the matrix products and attention of one CFG forward,
+``flops_source: "shapes"``), or with ``--count-flops`` from PyTorch's FLOP
+counter over one CPU forward in a subprocess (``"counted"``); the MFU
+divides it by the H100's published dense bf16 peak.  ``--flops-only``
+prints that counted number and exits, on the CPU.  ``--trace DIR`` writes a
+``torch.profiler`` trace of one more run after the timed ones (as the JAX
+app does, so the profiler's cost stays out of the times); read it with
+``python -m naturaldiffusion_tpu_torch.utils.trace_summary DIR``.
 """
 
 from __future__ import annotations
@@ -35,8 +40,9 @@ from ..device import resolve_device
 from ..engine import NISchedule, natural_inference
 from ..models.dit import (DIT_CONFIGS, DiT, DiTConfig, dit_schedule_mods,
                           forward_with_cfg)
-
-H100_BF16_PEAK = 989e12     # dense, NVIDIA's data sheet (SXM part)
+from ..utils.flops import (H100_BF16_PEAK, flops_counted,
+                           flops_via_cpu_subprocess)
+from ..utils.profiling import trace
 # the JAX app's --toy DiT (``naturaldiffusion_tpu/apps/bench_dit.py:53``):
 # 2 heads of 32
 TOY = DiTConfig(input_size=8, patch_size=2, in_channels=4, hidden_size=64,
@@ -59,6 +65,26 @@ def flops_per_forward(cfg: DiTConfig, batch: int, mods: bool) -> int:
         total += 2 * b2 * (256 * d + d * d)                 # t_embedder
         total += 2 * b2 * d * (6 * d * cfg.depth + 2 * d)   # adaLN
     return total
+
+
+def count_forward_flops(cfg: DiTConfig, batch: int, cfg_scale: float,
+                        mods: bool) -> int:
+    """FLOPs of one CFG forward at model batch ``2 * batch`` as PyTorch's
+    counter sees them, on the CPU in float32 (the same products as bf16),
+    with the modulations hoisted when ``mods``, as the timed run has them."""
+    model = DiT(cfg, device="cpu", seed=2)
+    z = torch.zeros((2 * batch, cfg.input_size, cfg.input_size,
+                     cfg.in_channels))
+    y = torch.zeros((2 * batch,), dtype=torch.long)
+    t = torch.full((2 * batch,), 500.0)
+    m = None
+    if mods:
+        m = dit_schedule_mods(model, t[:1], y)
+        m = {"blocks": tuple(a[0] for a in m["blocks"]),
+             "final": m["final"][0]}
+    return flops_counted(lambda zz: forward_with_cfg(
+        lambda xx, tt, yy: model(xx, tt, yy, mods=m), zz, t, y, cfg_scale,
+        cfg.in_channels), z)
 
 
 def make_sampler(model: DiT, matrix: CoeffMatrix, *, cfg_scale: float = 4.0,
@@ -100,10 +126,22 @@ def main(argv=None) -> int:
     p.add_argument("--toy", action="store_true",
                    help="tiny DiT (smoke tests; timing meaningless)")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of one more run here")
+    p.add_argument("--count-flops", action="store_true",
+                   help="count flops_per_fwd on the CPU (a --flops-only "
+                        "subprocess) instead of from the shapes")
+    p.add_argument("--flops-only", action="store_true",
+                   help="print the FLOPs of one CFG forward, counted on the "
+                        "CPU, and exit")
     args = p.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = TOY if args.toy else DIT_CONFIGS[args.model]
+    if args.flops_only:
+        print(count_forward_flops(cfg, args.batch, args.cfg_scale,
+                                  not args.no_mods), flush=True)
+        return 0
+    dev = resolve_device(args.device)
     quant = "w8" if os.environ.get("NATDIFF_QUANT", "") == "w8" else None
     model = DiT(cfg, quant=quant, device=dev, seed=2).to(torch.bfloat16)
     n_par = sum(a.numel() for a in model.parameters())
@@ -135,8 +173,21 @@ def main(argv=None) -> int:
         ts.append(time.perf_counter() - t0)
     if not torch.isfinite(out).all():
         raise FloatingPointError("non-finite latents")
+    if args.trace:
+        with trace(args.trace):
+            run(z0, y)
     dt = statistics.median(ts)
-    flops = flops_per_forward(cfg, b, not args.no_mods)
+    if args.count_flops:
+        sub = ["--model", args.model, "--batch", str(b), "--cfg-scale",
+               str(args.cfg_scale)]
+        sub += (["--no-mods"] if args.no_mods else []) + (
+            ["--toy"] if args.toy else [])
+        flops = int(flops_via_cpu_subprocess(
+            "naturaldiffusion_tpu_torch.apps.bench_dit", sub))
+        flops_source = "counted"
+    else:
+        flops = flops_per_forward(cfg, b, not args.no_mods)
+        flops_source = "shapes"
     on_card = dev.type == "cuda"
     print(json.dumps({
         "model": ("toy-dit" if args.toy else args.model)
@@ -147,7 +198,7 @@ def main(argv=None) -> int:
         "transformer_fwd_ms": dt / (n * b) * 1e3,
         "img_per_min": 60.0 * b / dt,
         "flops_per_fwd": flops,
-        "flops_source": "shapes",
+        "flops_source": flops_source,
         "mfu": flops * n / (dt * H100_BF16_PEAK) if on_card else None,
     }), flush=True)
     return 0

@@ -5,11 +5,24 @@
 // over keys j < T, with the softmax in f32 and the output in q's type.
 // Keys at or past T are masked to -inf inside the kernel, so any T works.
 //
-// Replaces the Pallas TPU flash-attention kernel reached through `_flash`
-// in naturaldiffusion_tpu/ops/attention.py (the `jax.experimental.pallas.
-// ops.tpu.flash_attention` kernel).  There, an unaligned T is zero-padded
-// to 128/512 tokens and the pad keys are masked by segment ids; here the
-// mask is an index test, and nothing is padded in device memory.
+// Replaces two TPU kernels of naturaldiffusion_tpu/ops/attention.py:
+//
+// * K9, the Pallas flash-attention kernel reached through `_flash` (the
+//   `jax.experimental.pallas.ops.tpu.flash_attention` kernel): entry
+//   `natdiff_flash_attention`, the scale folded into the exponent.
+// * K10, the splash kernel reached through `_splash` and `mha_joint` (the
+//   `...ops.tpu.splash_attention` kernel): entry `natdiff_splash_attention`.
+//   Splash takes q already multiplied by the scale, so the exponent scale is
+//   log2(e); with `save_residuals` it also returns each row's natural-log
+//   logsumexp, lse = ln 2 * (m + log2 l) from the running max m (log2
+//   units) and sum l that the loop keeps anyway (template flag LSE).  The
+//   TPU splash kernel differs from the flash one in its grid and block
+//   granularity only, which has no counterpart here: both entries run the
+//   same tile loop.
+//
+// On the TPU an unaligned T is zero-padded to 128/512 tokens and the pad
+// keys are masked by segment ids; here the mask is an index test, and
+// nothing is padded in device memory.
 //
 // Design: one block of 4 warps per (b*h, 64 queries); each warp owns 16
 // query rows.  Q stays in registers as mma fragments for the whole run.
@@ -32,9 +45,11 @@
 //
 // Bound on the H100: at DiT-XL/2 ([2, 16, 256, 72], bf16) the call moves
 // 4.7 MB and does 0.6 GFLOP: bytes, 1.4 us.  The grid is 4 x 32 = 128
-// blocks for 132 SMs, one wave.  The tile loads are not overlapped with
-// the products (no cp.async or TMA pipeline yet): at 4 key tiles per block
-// that latency is most of the time, and overlapping it is later work.
+// blocks for 132 SMs, one wave.  At SD3's joint length ([2, 24, 4250, 64],
+// bf16) it does 222 GFLOP on 104 MB: operations, 0.22 ms, over 67 x 48
+// blocks of 67 key tiles each.  The tile loads are not overlapped with the
+// products (no cp.async or TMA pipeline yet), and overlapping them is
+// later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -126,12 +141,15 @@ __device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <typename T, int D>
+// LSE: also write lse[(b * H + h) * Tlen + i], the natural-log logsumexp
+// of row i's scaled scores (f32)
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, long long s_b,
-             long long s_h, long long s_t, long long o_b, long long o_h,
-             long long o_t, int H, int Tlen, float scale_log2) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, long long s_b, long long s_h,
+             long long s_t, long long o_b, long long o_h, long long o_t,
+             int H, int Tlen, float scale_log2) {
   constexpr int DK = (D + 15) / 16 * 16;     // Q K^T reduction, zero-padded
   constexpr int NK = DK / 16;                // its k16 steps
   constexpr int NV = D / 8;                  // P V's n8 tiles
@@ -331,12 +349,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // normalise and store: c0,c1 at row g, c2,c3 at row g+8
-  float inv[2];
+  float inv[2], l_row[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float l = l_run[i];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_row[i] = l;
     inv[i] = 1.f / l;
   }
   T* ob = o + (long long)(bh / H) * o_b + (long long)(bh % H) * o_h;
@@ -348,19 +367,50 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int n = 0; n < NV; ++n)
         st2(ob + (long long)row * o_t + n * 8 + 2 * t,
             acc[n][2 * h] * inv[h], acc[n][2 * h + 1] * inv[h]);
+      // m_run and l_row are the same in the 4 threads of a row's quad
+      if (LSE && t == 0)
+        lse[(long long)bh * Tlen + row] =
+            0.6931471805599453f * (m_run[h] + log2f(l_row[h]));
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 void launch(dim3 grid, cudaStream_t st, const void* q, const void* k,
-            const void* v, void* o, long long s_b, long long s_h,
+            const void* v, void* o, float* lse, long long s_b, long long s_h,
             long long s_t, long long o_b, long long o_h, long long o_t, int H,
             int Tlen, float scale_log2) {
-  flash_kernel<T, D><<<grid, THREADS, 0, st>>>(
+  flash_kernel<T, D, LSE><<<grid, THREADS, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), s_b, s_h, s_t, o_b, o_h,
-      o_t, H, Tlen, scale_log2);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, s_b, s_h, s_t, o_b,
+      o_h, o_t, H, Tlen, scale_log2);
+}
+
+template <bool LSE>
+int dispatch(int dtype, int d, const void* q, const void* k, const void* v,
+             void* o, float* lse, long long s_b, long long s_h, long long s_t,
+             long long o_b, long long o_h, long long o_t, int B, int H,
+             int Tlen, float scale_log2, void* stream) {
+  if (Tlen <= 0 || B <= 0 || H <= 0 || (long long)B * H > 65535)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)((Tlen + BQ - 1) / BQ), (unsigned)(B * H));
+  cudaStream_t st = (cudaStream_t)stream;
+#define NATDIFF_CASE(DT, TT, DD)                                               \
+  if (dtype == DT && d == DD) {                                                \
+    launch<TT, DD, LSE>(grid, st, q, k, v, o, lse, s_b, s_h, s_t, o_b, o_h,    \
+                        o_t, H, Tlen, scale_log2);                             \
+    return (int)cudaGetLastError();                                           \
+  }
+  NATDIFF_CASE(0, float, 16)
+  NATDIFF_CASE(0, float, 32)
+  NATDIFF_CASE(0, float, 64)
+  NATDIFF_CASE(0, float, 72)
+  NATDIFF_CASE(1, __nv_bfloat16, 16)
+  NATDIFF_CASE(1, __nv_bfloat16, 32)
+  NATDIFF_CASE(1, __nv_bfloat16, 64)
+  NATDIFF_CASE(1, __nv_bfloat16, 72)
+#undef NATDIFF_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -380,26 +430,24 @@ int natdiff_flash_attention(int dtype, int d, const void* q, const void* k,
                             long long s_h, long long s_t, long long o_b,
                             long long o_h, long long o_t, int B, int H,
                             int Tlen, float scale_log2, void* stream) {
-  if (Tlen <= 0 || B <= 0 || H <= 0 || (long long)B * H > 65535)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)((Tlen + BQ - 1) / BQ), (unsigned)(B * H));
-  cudaStream_t st = (cudaStream_t)stream;
-#define NATDIFF_CASE(DT, TT, DD)                                               \
-  if (dtype == DT && d == DD) {                                                \
-    launch<TT, DD>(grid, st, q, k, v, o, s_b, s_h, s_t, o_b, o_h, o_t, H,     \
-                   Tlen, scale_log2);                                         \
-    return (int)cudaGetLastError();                                           \
-  }
-  NATDIFF_CASE(0, float, 16)
-  NATDIFF_CASE(0, float, 32)
-  NATDIFF_CASE(0, float, 64)
-  NATDIFF_CASE(0, float, 72)
-  NATDIFF_CASE(1, __nv_bfloat16, 16)
-  NATDIFF_CASE(1, __nv_bfloat16, 32)
-  NATDIFF_CASE(1, __nv_bfloat16, 64)
-  NATDIFF_CASE(1, __nv_bfloat16, 72)
-#undef NATDIFF_CASE
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(dtype, d, q, k, v, o, nullptr, s_b, s_h, s_t, o_b,
+                         o_h, o_t, B, H, Tlen, scale_log2, stream);
+}
+
+// The splash form: q is pre-scaled (q * sm_scale in q's type), so the
+// exponent scale is log2(e).  lse: null, or a contiguous f32 [B, H, T] that
+// receives each row's natural-log logsumexp.  Otherwise as above.
+int natdiff_splash_attention(int dtype, int d, const void* q, const void* k,
+                             const void* v, void* o, float* lse,
+                             long long s_b, long long s_h, long long s_t,
+                             long long o_b, long long o_h, long long o_t,
+                             int B, int H, int Tlen, void* stream) {
+  const float log2e = 1.4426950408889634f;
+  if (lse)
+    return dispatch<true>(dtype, d, q, k, v, o, lse, s_b, s_h, s_t, o_b, o_h,
+                          o_t, B, H, Tlen, log2e, stream);
+  return dispatch<false>(dtype, d, q, k, v, o, nullptr, s_b, s_h, s_t, o_b,
+                         o_h, o_t, B, H, Tlen, log2e, stream);
 }
 
 }  // extern "C"

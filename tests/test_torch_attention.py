@@ -75,7 +75,7 @@ def test_strided_qkv_views_as_the_dit_passes_them():
     assert got16.dtype == torch.bfloat16 and got16.shape == (2, 4, 40, 72)
 
 
-@pytest.mark.parametrize("backend", ["ring", "splash", "splash_interpret"])
+@pytest.mark.parametrize("backend", ["ring"])
 def test_unported_backends_raise(backend):
     q, k, v = (torch.from_numpy(a) for a in _qkv(16, 64))
     with pytest.raises(NotImplementedError, match="slice"):
@@ -88,8 +88,6 @@ def test_bad_backend_and_shapes_raise():
         A.mha(q, k, v, backend="nope")
     with pytest.raises(ValueError, match="shape"):
         A.flash_attention(q, k[:, :, :8], v, 0.1)
-    with pytest.raises(NotImplementedError, match="tooling slice"):
-        A.mha_joint(q, k, v, split=8)
 
 
 # bf16 q, k, v: the two "xla" backends both round the scores and the

@@ -65,6 +65,28 @@ sampler = get_pc_sampler(sde, get_score_fn(sde, ve), (1, 16, 16, 3),
 img, nfe = sampler(torch.Generator().manual_seed(0))
 assert torch.isfinite(get_inverse_scaler(small.centered)(img)).all()
 assert nfe == 6
+import contextlib, io, tempfile
+from naturaldiffusion_tpu_torch.apps import bench_attention, bench_conv
+from naturaldiffusion_tpu_torch.ops.attention import mha_joint
+from naturaldiffusion_tpu_torch.ops.fused_act import fused_leaky_relu_pallas
+from naturaldiffusion_tpu_torch.utils import NFECounter, Timer, trace
+from naturaldiffusion_tpu_torch.utils import flops, trace_summary
+assert torch.isfinite(mha(q, q, q, backend="splash")).all()
+qj = torch.randn(1, 2, 520, 64)
+assert torch.isfinite(mha_joint(qj, qj, qj, split=512, interpret=True)).all()
+assert torch.isfinite(fused_leaky_relu_pallas(torch.randn(3, 8),
+                                              torch.zeros(8))).all()
+assert Timer(iters=1, device="cpu")(lambda: None) >= 0
+assert NFECounter(abs)(-1) == 1
+assert flops.flops_counted(lambda a: a @ a, torch.randn(4, 4)) == 128
+with contextlib.redirect_stdout(io.StringIO()):
+    bench_attention.main(["--lengths", "64", "--heads", "1", "--device",
+                          "cpu"])
+    bench_conv.main(["--toy", "--device", "cpu"])
+with tempfile.TemporaryDirectory() as d:
+    with trace(d):
+        torch.randn(4, 4).sum()
+    assert trace_summary.summarize(d)[0] == 0
 bad = sorted(k for k in sys.modules
              if k in ("jax", "naturaldiffusion_tpu")
              or k.startswith(("jax.", "jaxlib", "naturaldiffusion_tpu.")))
