@@ -6,11 +6,15 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``
 printed as one line with its numbers and seconds as it ends:
 
   env      the card (``nvidia-smi`` name and power limit), torch and CUDA.
-  build    ``nvcc`` builds the kernels of ``naturaldiffusion_tpu_torch/csrc``.
+  build    ``nvcc`` builds the kernels of ``naturaldiffusion_tpu_torch/csrc``;
+           prints the registers and spills of every conv3x3.cu kernel and
+           fails if one spills.
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes the main path gives it (recorded from one batch-64
            forward), then timed (CUDA events, median, L2 flushed) beside the
-           plain version, one PyTorch library call and the card's bound.
+           plain version, one PyTorch library call and the card's bound;
+           each timed conv with its tile plan, TFLOP/s and bound share.
+           Then the bf16 conv kernel at ragged shapes of no model.
   forward  one full-width CIFAR-10 NCSN++ forward on 2 images in float32:
            the card (kernels) against the CPU (plain versions).
   slice    the main path: 10-step DDPM Natural Inference over a batch of 64
@@ -36,7 +40,8 @@ printed as one line with its numbers and seconds as it ends:
            gives them, f32 and bf16, then timed as in ``kernels``.
   ve_forward    one full-width VE NCSN++ forward at one image in float32:
            the card against the CPU; then one level-0 resblock in its
-           unfused form (the path's) against its fused form, timed.
+           unfused form (the path's) against its fused form, timed, and
+           which form is faster.
   ve_slice      the VE path: ``get_pc_sampler`` (reverse diffusion +
            Langevin, snr 0.075) over the full-width model in bf16 at batch
            4, with N = 10 steps instead of the config's 2000; launch
@@ -68,6 +73,7 @@ import copy
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -238,6 +244,27 @@ def host_us(torch, fn, n=200):
     return dt / n * 1e6
 
 
+def profiled(torch, fn, top_n=8):
+    """Device time, wall time, the card's busy share and the top kernels of
+    one synchronised call of ``fn``, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        tw = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - tw) * 1e3
+    kern = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    top = [(e.key[:60], e.count, e.self_device_time_total / 1e3)
+           for e in sorted(kern, key=lambda e: -e.self_device_time_total)
+           [:top_n]]
+    return dict(device_ms=dev_ms, wall_ms=wall_ms,
+                busy_share=dev_ms / wall_ms, top=top)
+
+
 def check_close(what, got, want, tol):
     """|got - want| <= tol * (1 + |want|), elementwise; returns the max
     absolute error and the max error relative to max |want|."""
@@ -284,7 +311,37 @@ def phase_build():
         lines = log.read_text().splitlines() if log.exists() else []
         ptxas[name] = sorted({ln.split(":", 1)[-1].strip() for ln in lines
                               if "registers" in ln or "spill" in ln})
+    conv = conv_ptxas(_cuda.build_dir() / "conv3x3.log")
+    for fn, regs, spill in conv:
+        print(f"  ptxas conv3x3 {fn}: {regs} registers, {spill} bytes "
+              f"spilled", flush=True)
     phase("build", t, nvcc_seconds=secs, ptxas=ptxas)
+    if not conv or any(spill for _, _, spill in conv):
+        raise AssertionError("conv3x3.cu: no ptxas lines, or a kernel spills")
+
+
+def conv_ptxas(log):
+    """(kernel, registers, spill bytes) of every kernel in the ``ptxas -v``
+    log of conv3x3.cu; template arguments read from the mangled name."""
+    out, fn, spill = [], None, 0
+    for ln in (log.read_text().splitlines() if log.exists() else []):
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            k = re.search(r"\d+(conv3x3(?:_tc|_tiled)?_kernel)I(.*?)EEv",
+                          name)
+            fn = (f"{k.group(1)}<"
+                  + ",".join(re.findall(r"L[ib](\d+)E", k.group(2) + "E"))
+                  + ">") if k else name
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and fn:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            out.append((fn, int(m.group(1)), spill))
+            fn = None
+    return out
 
 
 def kernel_signatures(model, x, t):
@@ -349,6 +406,64 @@ def conv_cost(sig, itemsize, dtype_name):
     bound = max(flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES_PER_S)
     return flops, nbytes, bound * 1e3, ("operations" if flops / PEAK_FLOPS[
         dtype_name] >= nbytes / HBM_BYTES_PER_S else "bytes")
+
+
+def plan_of(sig):
+    """The bf16 tensor-core kernel's tile plan of a conv signature."""
+    from naturaldiffusion_tpu_torch.ops import conv3x3 as C
+    (b, h, w, cin), wshape, pre, _, stats = sig
+    p = C._tile_plan(b, h, w, cin, wshape[3], pre, stats)
+    return dict(tile=f"{p['bm']}x{p['bn']}",
+                spatial=f"{p['imgs']}x{p['th']}x{p['tw']}",
+                blocks=p["grid"][0] * p["grid"][1], smem=p["smem"])
+
+
+def print_conv_row(kind, r):
+    """One timed conv signature: its plan, time, rate and bound share."""
+    print(f"  {kind} {r['sig']} x{r['per_forward']}: {r['ms']:.4f} ms "
+          f"({r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s, "
+          f"{r['bound_ms'] / r['ms']:.3f} of the {r['bound_by']} bound "
+          f"{r['bound_ms']:.4f}), plain {r['plain_ms']:.4f}, library "
+          f"{r['library_ms']:.4f}; plan {r['plan']}", flush=True)
+
+
+# shapes of no model: a map that no tile divides (with every option), a
+# 3-channel input and output, and a ragged large map through K4's entry
+RAGGED_CONVS = (
+    ("conv3x3_gn", ((3, 20, 28, 128), (3, 3, 128, 128), True, True, True)),
+    ("conv3x3", ((2, 32, 32, 3), (3, 3, 3, 128), False, False, False)),
+    ("conv3x3", ((2, 32, 32, 128), (3, 3, 128, 3), False, False, False)),
+    ("conv3x3_tiled", ((2, 67, 45, 128), (3, 3, 128, 128), False, False,
+                       False)))
+
+
+def check_ragged_convs(torch, C, gen):
+    """The bf16 tensor-core kernel at RAGGED_CONVS against the plain
+    version, at BF16_TOL and STATS_TOL."""
+    out = []
+    for kind, sig in RAGGED_CONVS:
+        xx, ww, bb, pre, sk = conv_inputs(torch, sig, torch.bfloat16, gen)
+        kw = dict(pre=pre, skip=sk, skip_rescale=sk is not None,
+                  emit_stats=sig[4])
+        got = (C.conv3x3_gn(xx, ww, bb, **kw) if kind == "conv3x3_gn"
+               else getattr(C, kind)(xx, ww, bb))
+        with torch.backends.cudnn.flags(enabled=False):
+            want = C.conv3x3_gn_reference(xx, ww, bb, **kw)
+        got, want = (got, want) if sig[4] else ((got,), (want,))
+        row = dict(kind=kind, sig=repr(sig), plan=plan_of(sig))
+        row["err"], row["rel_err"] = check_close(
+            f"ragged {kind} {sig}", got[0], want[0], BF16_TOL)
+        if sig[4]:
+            acc = want[0].float()
+            row["stats_err"] = max(
+                check_stats(f"ragged {sig} s1", got[1], want[1],
+                            acc.abs().sum(dim=(1, 2))),
+                check_stats(f"ragged {sig} s2", got[2], want[2],
+                            (acc * acc).sum(dim=(1, 2))))
+        print(f"  ragged {kind} {sig}: max abs err {row['err']:.3e}, "
+              f"plan {row['plan']}", flush=True)
+        out.append(row)
+    return out
 
 
 def phase_kernels(model_bf16, details):
@@ -455,8 +570,10 @@ def phase_kernels(model_bf16, details):
                                xcl, wcl, bb, padding=1)))
                 (row["flops"], row["bytes"], row["bound_ms"],
                  row["bound_by"]) = conv_cost(sig, 2, dn)
+                row["plan"] = plan_of(sig)
         rows[kind].append(row)
     details["convs"] = rows
+    details["conv_ragged"] = check_ragged_convs(torch, C, gen)
 
     # host cost of one launch through each wrapper, beside one PyTorch op's
     host = {"weighted_sum": host_us(torch, lambda: WS.fused_weighted_sum(
@@ -500,11 +617,7 @@ def phase_kernels(model_bf16, details):
     for kind in rows:
         for r in rows[kind]:
             if r["per_forward"]:
-                print(f"  {kind} {r['sig']} x{r['per_forward']}: "
-                      f"{r['ms']:.4f} ms ({r['flops'] / r['ms'] / 1e9:.2f} "
-                      f"TFLOP/s), plain {r['plain_ms']:.4f}, library "
-                      f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}",
-                      flush=True)
+                print_conv_row(kind, r)
     rate = {"weighted_sum": f"{nbytes / k1['ms'] / 1e6:.1f} GB/s"}
     for kind in rows:
         d = details[f"{kind}_per_forward"]
@@ -634,6 +747,7 @@ def phase_slice(model_f32, n_plain, n_gn, n_k6, smi):
                              f"forward: {n_gn} K3, {n_plain} K2, {n_k6} K6)")
     if not (torch.isfinite(out).all() and out.shape == init.shape):
         raise AssertionError("slice: non-finite or misshapen samples")
+    prof = profiled(torch, lambda: run(init, noises=noises))  # where it goes
 
     # the first 2 samples against the CPU in float32, fed the same noises;
     # the same 2 through the kernels in float32 pin the loop more tightly
@@ -652,7 +766,8 @@ def phase_slice(model_f32, n_plain, n_gn, n_k6, smi):
                              f"{SLICE_F32_TOL:g})")
     phase("slice", t, img_per_s=BATCH / wall, wall_s=wall, card=smi,
           img_per_s_before_k6=CIFAR_IMG_PER_S_BEFORE_K6,
-          launches=launches, rel_l2_bf16_vs_cpu_f32=err, tol=SLICE_TOL,
+          launches=launches, profiled_run=prof,
+          rel_l2_bf16_vs_cpu_f32=err, tol=SLICE_TOL,
           rel_l2_f32_vs_cpu_f32=err32, tol_f32=SLICE_F32_TOL,
           control_plain_bf16_rel_l2=ctl_plain,
           control_time_1pct_off_rel_l2=ctl_fault,
@@ -1140,6 +1255,7 @@ def phase_ve_kernels(model_bf16, details):
                                                       padding=1)))
                 (row["flops"], row["bytes"], row["bound_ms"],
                  row["bound_by"]) = conv_cost(sg, 2, dn)
+                row["plan"] = plan_of(sg)
         rows["conv3x3_tiled"].append(row)
     for (kind, sg), mult in sigs.items():
         if kind != "group_norm":
@@ -1210,12 +1326,13 @@ def phase_ve_kernels(model_bf16, details):
         details[f"ve_{kind}_per_forward"] = dict(
             launches=sum(r["per_forward"] for r in rows[kind]), flops=flops,
             **tot)
-    for kind in rows:
-        for r in rows[kind]:
-            print(f"  {kind} {r['sig']} x{r['per_forward']}: {r['ms']:.4f} "
-                  f"ms, plain {r['plain_ms']:.4f}, library "
-                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
-                  f"({r['bound_by']})", flush=True)
+    for r in rows["conv3x3_tiled"]:
+        print_conv_row("conv3x3_tiled", r)
+    for r in rows["group_norm"]:
+        print(f"  group_norm {r['sig']} x{r['per_forward']}: {r['ms']:.4f} "
+              f"ms, plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})", flush=True)
     per_fwd = {k: sum(n for (kind, _), n in sigs.items() if kind == k)
                for k in ("conv3x3", "conv3x3_gn", "conv3x3_tiled",
                          "group_norm")}
@@ -1295,7 +1412,9 @@ def phase_ve_forward(model_f32):
           params=sum(p.numel() for p in model_f32.parameters()),
           out_abs_max=float(want.abs().max()),
           level0_block=dict(shape=list(h.shape), unfused_ms=t_unfused,
-                            fused_ms=t_fused, rel_l2_fused_vs_unfused=blk_err))
+                            fused_ms=t_fused, rel_l2_fused_vs_unfused=blk_err,
+                            faster_form=("unfused" if t_unfused <= t_fused
+                                         else "fused")))
 
 
 def ve_counters():
@@ -1311,7 +1430,6 @@ def phase_ve_slice(cfg, model_f32, sigs, smi):
     ``get_pc_sampler``, N = VE_STEPS; then the accuracy check with its two
     controls."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from naturaldiffusion_tpu_torch.samplers.pc import get_pc_sampler
     from naturaldiffusion_tpu_torch.scaler import get_inverse_scaler
     from naturaldiffusion_tpu_torch.sde import VESDE, get_score_fn
@@ -1360,18 +1478,7 @@ def phase_ve_slice(cfg, model_f32, sigs, smi):
 
     # device-busy share of one forward, from the profiler
     s_lab = torch.full((VE_BATCH,), 2.0, device="cuda")
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
-        tw = time.perf_counter()
-        model(xs.to(torch.bfloat16), s_lab)
-        torch.cuda.synchronize()
-        fwd_wall = time.perf_counter() - tw
-    kern = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")
-            and e.self_device_time_total > 0]
-    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    top = [(e.key[:60], e.count, e.self_device_time_total / 1e3)
-           for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]]
+    prof = profiled(torch, lambda: model(xs.to(torch.bfloat16), s_lab))
 
     # accuracy: the same seeded run in f32 through the plain versions on
     # the card (TF32 off), against the kernels in bf16; two controls
@@ -1394,10 +1501,7 @@ def phase_ve_slice(cfg, model_f32, sigs, smi):
           mfu=VE_FLOP_PER_IMAGE * VE_BATCH * nfe / wall
           / PEAK_FLOPS["torch.bfloat16"],
           launches=counts, launches_per_forward=per_fwd,
-          profiled_forward=dict(device_ms=dev_ms,
-                                wall_ms=fwd_wall * 1e3,
-                                busy_share=dev_ms / (fwd_wall * 1e3),
-                                top=top),
+          profiled_forward=prof,
           rel_l2_bf16_vs_plain_f32=err, tol=VE_SLICE_TOL,
           rel_l2_f32_vs_plain_f32=err32, tol_f32=VE_SLICE_F32_TOL,
           control_plain_bf16_rel_l2=ctl_plain,

@@ -18,7 +18,9 @@
 All run kernels of ``csrc/conv3x3.cu`` for a CUDA tensor and
 :func:`conv3x3_gn_reference` for a CPU one.  The plain version accumulates
 in float32 like the kernels: the prologue output is rounded to x's type,
-then the conv runs on float32 copies of the operands.
+then the conv runs on float32 copies of the operands.  In bfloat16 every
+call runs one tensor-core kernel whose tiles :func:`_tile_plan` chooses
+here; float32 runs the SIMT kernels.
 
 The route predicates :func:`fused_resblock_ok` and :func:`pallas_conv_fits`
 are the JAX package's, copied with their constants (``:76``, ``:115-198``):
@@ -31,6 +33,7 @@ routes is a question for measurements, not for these numbers.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -39,14 +42,100 @@ from . import _cuda
 
 _RSQRT2 = 0.7071067811865476
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# natdiff_conv3x3_tiled(dtype, x, w, b, y, B, H, W, Cin, Cout, stream)
-_TILED_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
+# the plan's arguments: cfg, imgs, th, tw, bk, stages, grid_x, grid_y,
+# smem, vec_x, vec_w
+_PLAN_ARGS = 11
+# natdiff_conv3x3_tiled(dtype, x, w, b, y, B, H, W, Cin, Cout, plan...,
+# stream)
+_TILED_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * (5 + _PLAN_ARGS) + [ctypes.c_void_p])
 # natdiff_conv3x3(dtype, has_pre, has_skip, emit_stats, x, w, b, pre_w,
-# pre_b, skip, scale, y, s1, s2, B, H, W, Cin, Cout, stream)
+# pre_b, skip, scale, y, s1, s2, B, H, W, Cin, Cout, plan..., stream)
 _CONV_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
                   + [ctypes.c_float] + [ctypes.c_void_p] * 3
-                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * (5 + _PLAN_ARGS) + [ctypes.c_void_p])
+
+# --- the bf16 tensor-core kernel's tile plan ---------------------------------
+# constants of csrc/conv3x3.cu's namespace tc (the entry checks them): BK
+# input channels per chunk, the weight ring's stages, the halo row stride
+# (bf16)
+_BK, _STAGES, _SA = 64, 3, 72
+SMEM_MAX = 232_448          # dynamic shared memory a block may use
+# (BM output pixels, BN output channels) of the kernel's instances, by cfg
+TILES = ((128, 128), (64, 128), (64, 64))
+# blocks a launch should reach before a larger tile is taken: about one
+# per SM of the card's 132
+_MIN_BLOCKS = 128
+
+
+def _spatial_tile(bm, hh, ww):
+    """(images, rows, columns) of a block's ``bm`` pixels: several whole
+    images where an image is a multiple of 16 pixels (each m16 row tile of
+    the mma then lies in one image) at least 4 x 4, else a 2-D tile of one
+    image, 16 columns wide where the map is wider than 8."""
+    hw = hh * ww
+    if hh >= 4 and ww >= 4 and hw % 16 == 0 and bm % hw == 0:
+        return bm // hw, hh, ww
+    tw = 16 if bm >= 128 and ww > 8 else 8
+    return 1, bm // tw, tw
+
+
+def _tile_plan(bsz, hh, ww, cin, cout, has_pre=False, emit_stats=False):
+    """The bf16 kernel's launch for ``[bsz, hh, ww, cin] -> cout``: the
+    largest tile (``TILES``) whose grid reaches ``_MIN_BLOCKS`` blocks (the
+    smallest where none does; 64 output channels where ``cout <= 64``), its
+    spatial tile, grid and dynamic shared memory.  Pure: the CPU tests walk
+    it, and the C entry checks it against its own constants."""
+    cfgs = [c for c, (_, bn) in enumerate(TILES) if bn == 64 or cout > 64]
+    for cfg in cfgs:
+        bm, bn = TILES[cfg]
+        imgs, th, tw = _spatial_tile(bm, hh, ww)
+        tiles_h, tiles_w = -(-hh // th), -(-ww // tw)
+        grid = (-(-bsz // imgs) * tiles_h * tiles_w, -(-cout // bn))
+        if grid[0] * grid[1] >= _MIN_BLOCKS:
+            break
+    halo = imgs * (th + 2) * (tw + 2)
+    smem = (2 * halo * _SA * 2 + _STAGES * _BK * (bn + 8) * 2
+            + (2 * imgs * cin * 4 if has_pre else 0)
+            + (2 * imgs * bn * 4 if emit_stats else 0)
+            + -(-5 * halo // 16) * 16)         # per halo row: source, image
+    if smem > SMEM_MAX or grid[1] > 65535:
+        raise ValueError(f"conv3x3: no tile plan for {(bsz, hh, ww, cin)} -> "
+                         f"{cout} ({smem} B of shared memory)")
+    return dict(cfg=cfg, bm=bm, bn=bn, imgs=imgs, th=th, tw=tw,
+                tiles_h=tiles_h, tiles_w=tiles_w, halo_rows=halo, bk=_BK,
+                stages=_STAGES, grid=grid, smem=smem)
+
+
+def tile_origin(plan, bx):
+    """(first image, first row, first column) of block ``bx`` of a plan,
+    as the kernel reads its ``blockIdx.x``."""
+    tx = bx % plan["tiles_w"]
+    ty = bx // plan["tiles_w"] % plan["tiles_h"]
+    gi = bx // (plan["tiles_w"] * plan["tiles_h"])
+    return gi * plan["imgs"], ty * plan["th"], tx * plan["tw"]
+
+
+@functools.lru_cache(maxsize=512)
+def _plan_ints(bsz, hh, ww, cin, cout, has_pre, emit_stats):
+    """:func:`_tile_plan` as the C entries take it, cached: a launch costs
+    host time that the small maps' kernels do not hide."""
+    p = _tile_plan(bsz, hh, ww, cin, cout, has_pre, emit_stats)
+    return (p["cfg"], p["imgs"], p["th"], p["tw"], p["bk"], p["stages"],
+            *p["grid"], p["smem"])
+
+
+def _plan_args(x, w, pre, emit_stats):
+    """The C entries' plan arguments; zeros for float32, whose SIMT kernels
+    take none."""
+    if x.dtype != torch.bfloat16:
+        return (0,) * _PLAN_ARGS
+    bsz, hh, ww, cin = x.shape
+    cout = w.shape[3]
+    vec_x = cin % 8 == 0 and x.data_ptr() % 16 == 0
+    vec_w = cout % 8 == 0 and w.data_ptr() % 16 == 0
+    return (*_plan_ints(bsz, hh, ww, cin, cout, pre is not None,
+                        bool(emit_stats)), vec_x, vec_w)
 
 
 def conv3x3_gn_reference(x, w, b=None, *, pre=None, skip=None,
@@ -122,9 +211,9 @@ def _launch(x, w, b, pre, skip, skip_rescale, emit_stats, what):
     cout = w.shape[3]
     y = torch.empty((bsz, hh, ww, cout), dtype=x.dtype, device=x.device)
     s1 = s2 = None
-    if emit_stats:
-        s1 = torch.zeros((bsz, cout), dtype=torch.float32, device=x.device)
-        s2 = torch.zeros((bsz, cout), dtype=torch.float32, device=x.device)
+    if emit_stats:       # one zeroed buffer: one fill launch, not two
+        s1, s2 = torch.zeros((2, bsz, cout), dtype=torch.float32,
+                             device=x.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -136,7 +225,7 @@ def _launch(x, w, b, pre, skip, skip_rescale, emit_stats, what):
                  ptr(pre[0] if pre else None), ptr(pre[1] if pre else None),
                  ptr(skip), _RSQRT2 if skip_rescale else 1.0, y.data_ptr(),
                  ptr(s1), ptr(s2), bsz, hh, ww, cin, cout,
-                 _cuda.stream_ptr(x))
+                 *_plan_args(x, w, pre, emit_stats), _cuda.stream_ptr(x))
     _cuda.check("conv3x3", err, what)
     return (y, s1, s2) if emit_stats else y
 
@@ -172,7 +261,8 @@ def conv3x3_tiled(x, w, b=None):
     with _cuda.on_device(x):
         err = fn(_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
                  None if b is None else b.data_ptr(), y.data_ptr(), bsz, hh,
-                 ww, cin, cout, _cuda.stream_ptr(x))
+                 ww, cin, cout, *_plan_args(x, w, None, False),
+                 _cuda.stream_ptr(x))
     _cuda.check("conv3x3", err, "conv3x3_tiled")
     conv3x3_tiled.launches += 1
     return y
