@@ -7,8 +7,8 @@ printed as one line with its numbers and seconds as it ends:
 
   env      the card (``nvidia-smi`` name and power limit), torch and CUDA.
   build    ``nvcc`` builds the kernels of ``naturaldiffusion_tpu_torch/csrc``;
-           prints the registers and spills of every conv3x3.cu kernel and
-           fails if one spills.
+           prints the registers and spills of every conv3x3.cu,
+           qmatmul.cu and attention.cu kernel and fails if one spills.
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes the main path gives it (recorded from one batch-64
            forward), then timed (CUDA events, median, L2 flushed) beside the
@@ -23,7 +23,10 @@ printed as one line with its numbers and seconds as it ends:
            float32 run fed the same noises.
   dit_kernels   kernels K9 (flash attention) and K7 (W8A16 matmul) against
            their plain versions at DiT-XL/2's shapes (and K9 at an
-           unaligned t = 250), timed as in ``kernels``.
+           unaligned t = 250, K7 at ragged M, N = 128 and K = 8192), timed
+           as in ``kernels``; K7 per product with its plan (blocks,
+           splits), TFLOP/s, bound share, ratio to cuBLAS and the time of a
+           per-call repack of the weight.
   dit_forward   one full-width DiT-XL/2 CFG forward (model batch 2) in
            float32: the card (kernels) against the CPU (plain versions),
            then the same under w8.
@@ -49,10 +52,11 @@ printed as one line with its numbers and seconds as it ends:
            against an f32 run of the plain versions on the card beside two
            controls, and the kernels in f32 against the same run.
   tool_kernels  kernel K10 (splash attention, with its logsumexp) against
-           its plain version at SD3's joint lengths, ``mha_joint`` against
-           one full softmax per row, kernel K8 (fused leaky ReLU) bit for
-           bit against its plain version, and K9 at SD3's length; each timed
-           as in ``kernels``.  K8's path: its wrapper at the level-0
+           its plain version at SD3's three joint lengths, ``mha_joint``
+           against one full softmax per row, kernel K8 (fused leaky ReLU)
+           bit for bit against its plain version, and K9 at SD3's length;
+           each timed as in ``kernels``, K9 and K10 at each length beside
+           SDPA's flash backend.  K8's path: its wrapper at the level-0
            activations of the CIFAR and VE models (no app calls K8, as in
            the JAX package).
   attention_bench  ``apps.bench_attention`` at its defaults (t = 4096,
@@ -146,9 +150,21 @@ DIT_W8_FORWARD_TOL = 2e-2
 # read 0.36; 0.1 sits 2.8x above the sound runs and 3.6x below that fault
 DIT_SLICE_TOL = 1e-1
 
+# K7 at shapes of no model: ragged M (16 and 272 rows: a part-filled row
+# tile), the narrowest N and the deepest K that qmatmul_ok admits
+K7_EDGE_SHAPES = ((16, 1152, 1152), (272, 4608, 1152), (512, 8192, 128),
+                  (16, 8192, 128))
+
+# split counts at which each DiT-XL/2 product is also timed, beside the
+# plan's own
+K7_SPLITS_TIMED = (1, 2, 3, 4, 6)
+
 # SD3-medium's joint attention: 24 heads of 64 over 4096 latent tokens and
 # 154 context tokens, batch 2
 SD3_B, SD3_H, SD3_LAT, SD3_CTX, SD3_D = 2, 24, 4096, 154, 64
+# the joint lengths of bench_attention: latent alone, + CLIP's 154, + T5's
+# 333 context tokens
+SD3_LENGTHS = (SD3_LAT, SD3_LAT + SD3_CTX, SD3_LAT + 333)
 # K10's logsumexp in f32: the hi/lo bf16 split keeps ~16 bits of each
 # operand, so scores of magnitude ~1 are off by ~1e-5; absolute
 LSE_TOL = 1e-4
@@ -311,28 +327,48 @@ def phase_build():
         lines = log.read_text().splitlines() if log.exists() else []
         ptxas[name] = sorted({ln.split(":", 1)[-1].strip() for ln in lines
                               if "registers" in ln or "spill" in ln})
-    conv = conv_ptxas(_cuda.build_dir() / "conv3x3.log")
-    for fn, regs, spill in conv:
-        print(f"  ptxas conv3x3 {fn}: {regs} registers, {spill} bytes "
-              f"spilled", flush=True)
-    phase("build", t, nvcc_seconds=secs, ptxas=ptxas)
-    if not conv or any(spill for _, _, spill in conv):
-        raise AssertionError("conv3x3.cu: no ptxas lines, or a kernel spills")
+    spills = {}
+    for src in PTXAS_CHECKED:
+        kern = kernel_ptxas(_cuda.build_dir() / f"{src}.log")
+        for fn, regs, spill in kern:
+            print(f"  ptxas {src} {fn}: {regs} registers, {spill} bytes "
+                  f"spilled", flush=True)
+        spills[src] = (len(kern), sum(spill for _, _, spill in kern))
+    phase("build", t, nvcc_seconds=secs, ptxas=ptxas,
+          kernels_and_spill_bytes=spills)
+    if any(n == 0 or spilled for n, spilled in spills.values()):
+        raise AssertionError(f"no ptxas lines, or a kernel spills: {spills}")
 
 
-def conv_ptxas(log):
-    """(kernel, registers, spill bytes) of every kernel in the ``ptxas -v``
-    log of conv3x3.cu; template arguments read from the mangled name."""
+# sources whose every kernel instance the build phase lists and holds to
+# zero spills
+PTXAS_CHECKED = ("conv3x3", "qmatmul", "attention")
+
+
+def kernel_name(mangled):
+    """``name<args>`` of a mangled kernel template instance: the
+    length-prefixed identifier ending in ``_kernel`` and its integer and
+    element-type (f32, bf16) arguments; the mangled name if none is."""
+    for m in re.finditer(r"\d+", mangled):
+        ident = mangled[m.end():m.end() + int(m.group())]
+        rest = mangled[m.end() + len(ident):]
+        if ident.endswith("_kernel") and rest.startswith("I"):
+            args = re.findall(r"L[ib](\d+)E|(13__nv_bfloat16)|(f)(?=[LE1])",
+                              rest[1:rest.find("EEv") + 1])
+            return ident + "<" + ",".join(
+                a[0] or ("bf16" if a[1] else "f32") for a in args) + ">"
+    return mangled
+
+
+def kernel_ptxas(log):
+    """(kernel, registers, spill bytes) of every kernel in a ``ptxas -v``
+    log; template arguments read from the mangled name (integers, and the
+    element types f and bf16)."""
     out, fn, spill = [], None, 0
     for ln in (log.read_text().splitlines() if log.exists() else []):
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            name = m.group(1)
-            k = re.search(r"\d+(conv3x3(?:_tc|_tiled)?_kernel)I(.*?)EEv",
-                          name)
-            fn = (f"{k.group(1)}<"
-                  + ",".join(re.findall(r"L[ib](\d+)E", k.group(2) + "E"))
-                  + ">") if k else name
+            fn = kernel_name(m.group(1))
             spill = 0
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and fn:
@@ -808,7 +844,8 @@ def plain_versions():
     ni = importlib.import_module("naturaldiffusion_tpu_torch.engine.ni")
     saved = (A.flash_attention, Q.matmul_wdq, ni.fused_weighted_sum)
     A.flash_attention = A.mha_reference
-    Q.matmul_wdq = Q.matmul_wdq_reference
+    Q.matmul_wdq = (lambda x, w_i8, s_w, bias=None, w_packed=None:
+                    Q.matmul_wdq_reference(x, w_i8, s_w, bias))
     ni.fused_weighted_sum = WS.fused_weighted_sum_reference
     try:
         yield
@@ -914,23 +951,31 @@ def phase_dit_kernels(details):
         w_i8, s_w = quantize_weight(rn(kk, n) / math.sqrt(kk))
         s_w = s_w.reshape(-1)
         b32 = (0.1 * rn(n)).to(torch.bfloat16).float()
+        packed = Q.pack_weight(w_i8).contiguous()      # as QDense keeps it
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32,
                                                         F32_TOL)):
             if dtype == torch.float32 and name != "fc1":
                 continue
             x = rn(m, kk).to(dtype)
-            got = Q.matmul_wdq(x, w_i8, s_w, b32)
+            got = Q.matmul_wdq(x, w_i8, s_w, b32, packed)
             want = Q.matmul_wdq_reference(x, w_i8, s_w, b32)
             key = f"{name}_{str(dtype).split('.')[-1]}"
             k7[key] = dict(zip(("max_abs_err", "max_rel_err"), check_close(
                 f"K7 matmul_wdq {key}", got, want, tol)))
+            # the call that packs the weight itself gives the same bits
+            if not torch.equal(Q.matmul_wdq(x, w_i8, s_w, b32), got):
+                raise AssertionError(f"K7 {key}: packed per call differs")
         x = rn(m, kk).to(torch.bfloat16)
         w_dq = (w_i8.float() * s_w).to(torch.bfloat16)
         flops = 2.0 * m * kk * n
         nbytes = 2 * m * kk + kk * n + 4 * n + 4 * n + 2 * m * n
-        k7[f"{name}_bfloat16"].update(
-            M=m, K=kk, N=n, blocks=(m // 128) * (n // 128),
-            ms=timer(lambda: Q.matmul_wdq(x, w_i8, s_w, b32)),
+        plan = Q._qm_plan(m, kk, n)
+        row = k7[f"{name}_bfloat16"]
+        row.update(
+            M=m, K=kk, N=n, blocks=math.prod(plan["grid"]),
+            tile=[plan["bm"], plan["bn"]], splits=plan["splits"],
+            ms=timer(lambda: Q.matmul_wdq(x, w_i8, s_w, b32, packed)),
+            repack_ms=timer(lambda: Q.pack_weight(w_i8).contiguous()),
             plain_ms=timer(lambda: Q.matmul_wdq_reference(x, w_i8, s_w,
                                                           b32)),
             library_ms=timer(lambda: torch.matmul(x, w_dq)),
@@ -939,11 +984,39 @@ def phase_dit_kernels(details):
             bound_by=("operations" if flops / PEAK_FLOPS["torch.bfloat16"]
                       >= nbytes / HBM_BYTES_PER_S else "bytes"),
             flops=flops)
+        row.update(tflops=flops / row["ms"] / 1e9,
+                   bound_share=row["bound_ms"] / row["ms"],
+                   vs_library=row["ms"] / row["library_ms"])
+        # the plan's split count beside the others it could have taken
+        plan_ints = Q._plan_ints(m, kk, n)
+        row["ms_by_splits"] = {
+            s: timer(lambda s=s: Q._launch(x, packed, s_w, b32, x.dtype,
+                                           plan_ints[:4] + (s,)
+                                           + plan_ints[5:]))
+            for s in K7_SPLITS_TIMED}
         if name == "fc1":
-            k7_host = host_us(torch, lambda: Q.matmul_wdq(x, w_i8, s_w, b32))
+            k7_host = host_us(torch, lambda: Q.matmul_wdq(x, w_i8, s_w, b32,
+                                                          packed))
+    # shapes of no model: ragged M, the narrowest N and the deepest K
+    for mm, kk, n in K7_EDGE_SHAPES:
+        w_i8, s_w = quantize_weight(rn(kk, n) / math.sqrt(kk))
+        s_w = s_w.reshape(-1)
+        b32 = 0.1 * rn(n)
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32,
+                                                        F32_TOL)):
+            x = rn(mm, kk).to(dtype)
+            key = f"M{mm}_K{kk}_N{n}_{str(dtype).split('.')[-1]}"
+            k7[key] = dict(zip(("max_abs_err", "max_rel_err"), check_close(
+                f"K7 matmul_wdq {key}", Q.matmul_wdq(x, w_i8, s_w, b32),
+                Q.matmul_wdq_reference(x, w_i8, s_w, b32), tol)),
+                splits=Q._qm_plan(mm, kk, n)["splits"])
+        check_close(f"K7 matmul_wdq {key} without bias",
+                    Q.matmul_wdq(x, w_i8, s_w),
+                    Q.matmul_wdq_reference(x, w_i8, s_w), F32_TOL)
     timed7 = [r for r in k7.values() if "ms" in r]
     k7_tot = {f: depth * sum(r[f] for r in timed7)
-              for f in ("ms", "plain_ms", "library_ms", "bound_ms", "flops")}
+              for f in ("ms", "repack_ms", "plain_ms", "library_ms",
+                        "bound_ms", "flops")}
     details["dit_flash_attention"] = dict(
         checks=k9, per_launch=k9_time, bytes=nbytes9, flops=flops9,
         host_us=k9_host)
@@ -971,10 +1044,20 @@ def phase_dit_kernels(details):
     ]
     for r in timed7:
         print(f"  qmatmul M={r['M']} K={r['K']} N={r['N']} "
-              f"({r['blocks']} blocks): {r['ms']:.4f} ms "
-              f"({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s), plain "
-              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
-              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+              f"({r['blocks']} blocks of {r['tile'][0]}x{r['tile'][1]}, "
+              f"{r['splits']} splits; by splits "
+              f"{ {s: round(v, 4) for s, v in r['ms_by_splits'].items()} }): "
+              f"{r['ms']:.4f} ms "
+              f"({r['tflops']:.1f} TFLOP/s, {100 * r['bound_share']:.1f}% of "
+              f"bound, {r['vs_library']:.2f}x cuBLAS), per-call repack "
+              f"{r['repack_ms']:.4f}, plain {r['plain_ms']:.4f}, cuBLAS "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})", flush=True)
+    print(f"  flash_attention [2, {h}, {tokens}, {dh}] bf16 per launch: "
+          f"{1e3 * k9_time['ms']:.2f} us, SDPA flash "
+          f"{1e3 * k9_time['library_ms']:.2f} us, plain "
+          f"{1e3 * k9_time['plain_ms']:.2f} us, bound "
+          f"{1e3 * k9_time['bound_ms']:.3f} us ({k9_bound_by})", flush=True)
     phase("dit_kernels", t0,
           checks={"flash_attention": len(k9), "qmatmul": len(k7)},
           tolerances=dict(f32=F32_TOL, bf16=BF16_TOL),
@@ -982,6 +1065,7 @@ def phase_dit_kernels(details):
                                       for f, v in k9_time.items()},
           flash_attention_tflops=flops9 / k9_time["ms"] / 1e9,
           qmatmul_tflops=k7_tot["flops"] / k7_tot["ms"] / 1e9,
+          qmatmul_repack_ms_per_forward=k7_tot["repack_ms"],
           host_us_per_launch={"flash_attention": round(k9_host, 2),
                               "qmatmul": round(k7_host, 2)},
           kernels={k["name"]: dict(
@@ -1561,7 +1645,7 @@ def phase_tool_kernels(details):
 
     # K10 against its plain version, output and logsumexp
     k10 = {}
-    for t in (SD3_LAT, t_sd3):
+    for t in SD3_LENGTHS:
         for dtype, tol in ((torch.float32, F32_TOL),
                            (torch.bfloat16, BF16_TOL)):
             q, k, v = (rn(b, h, t, d).to(dtype) for _ in range(3))
@@ -1644,6 +1728,32 @@ def phase_tool_kernels(details):
     for r in (k10_time, k9_long):
         r["tflops"] = flops / r["ms"] / 1e9
     del q, k, v, qs, got
+    # K9 and K10 (with and without the logsumexp) at each of SD3's joint
+    # lengths beside SDPA's flash backend, bf16
+    by_length = {}
+    for t in SD3_LENGTHS:
+        q, k, v = (rn(b, h, t, d).to(torch.bfloat16) for _ in range(3))
+        qs = A.prescale(q, scale)
+        fl, nb, bd, bb = attn_cost(b, h, t, d, 2)
+        r = dict(flash_ms=timer(lambda: A.flash_attention(q, k, v, scale)),
+                 splash_ms=timer(lambda: A._splash(qs, k, v, False)),
+                 splash_lse_ms=timer(lambda: A._splash(qs, k, v, True)),
+                 sdpa_flash_ms=timer(lambda: sdpa(q, k, v, scale)),
+                 bound_ms=bd, bound_by=bb, flops=fl,
+                 plan=A._attn_plan(b, h, t, d, torch.bfloat16)["warps"])
+        for f in ("flash", "splash", "splash_lse"):
+            r[f"{f}_tflops"] = fl / r[f"{f}_ms"] / 1e9
+            r[f"{f}_vs_sdpa"] = r[f"{f}_ms"] / r["sdpa_flash_ms"]
+        by_length[t] = r
+        print(f"  attention [{b}, {h}, {t}, {d}] bf16 ({r['plan']} warps a "
+              f"block): flash {r['flash_ms']:.4f} ms "
+              f"({r['flash_tflops']:.1f} TFLOP/s, "
+              f"{r['flash_vs_sdpa']:.2f}x SDPA), splash "
+              f"{r['splash_ms']:.4f}, splash with lse "
+              f"{r['splash_lse_ms']:.4f}, SDPA flash "
+              f"{r['sdpa_flash_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})", flush=True)
+    del q, k, v, qs
 
     # K8: the path (the wrapper at the two level-0 activations), counted
     FA.fused_leaky_relu_pallas.launches = 0
@@ -1683,7 +1793,8 @@ def phase_tool_kernels(details):
 
     details["tool_kernels"] = dict(splash=k10, splash_time=k10_time,
                                    mha_joint=joint, fused_act=k8,
-                                   flash_sd3=k9_long)
+                                   flash_sd3=k9_long,
+                                   attention_by_length=by_length)
     out = [
         dict(name="splash_attention", route="cuda",
              source="naturaldiffusion_tpu_torch/csrc/attention.cu",
@@ -1730,6 +1841,9 @@ def phase_tool_kernels(details):
               "tflops")},
           flash_attention_sd3={f: k9_long[f] for f in (
               "ms", "plain_ms", "library_ms", "bound_ms", "tflops")},
+          attention_by_length={t: {f: round(v, 5) for f, v in r.items()
+                                   if f.endswith("_ms")}
+                               for t, r in by_length.items()},
           fused_act_path_launches=k8_count)
     return out, k8_count, k9_long
 
@@ -1788,7 +1902,9 @@ def phase_tool_trace():
         summary = buf.getvalue().splitlines()
     finally:
         shutil.rmtree(logdir, ignore_errors=True)
-    if rc != 0 or total_us <= 0 or "flash_kernel" not in fam:
+    # K9's kernel families: the bf16 ring loop and the f32 split loop
+    k9_fams = sorted({"flash_ring_kernel", "flash_split_kernel"} & set(fam))
+    if rc != 0 or total_us <= 0 or not k9_fams:
         raise AssertionError(f"tool_trace: rc {rc}, device total "
                              f"{total_us} us, families {sorted(fam)}")
     if dit["flops_source"] != "counted" or dit["flops_per_fwd"] != (
@@ -1804,7 +1920,8 @@ def phase_tool_trace():
     if rc != 0 or conv["best_variant"] not in conv["serves"]:
         raise AssertionError(f"bench_conv: rc {rc}, {conv}")
     phase("tool_trace", t0, bench_dit_toy=dit, device_total_us=total_us,
-          families=len(fam), flash_kernel_us=fam["flash_kernel"],
+          families=len(fam),
+          flash_kernel_us=sum(fam[f] for f in k9_fams),
           bench_conv=conv)
     return dit, conv
 

@@ -14,16 +14,42 @@
 // Bound on the H100: operations, not bytes.  The TPU kernel exists to halve
 // the weight bytes read on a v5e; on the H100 at DiT-XL/2's 512 rows each
 // launch is above the bf16 ridge (fc1: 5.4 GFLOP = 5.5 us at 989 TFLOP/s
-// against 11 MB = 3.3 us at 3.35 TB/s), so the kernel pays only if it runs
-// on the tensor cores.  It does: warp-level mma.sync m16n8k16 (bf16 in,
-// f32 accumulate).  A block computes a 128 x 128 tile of y with 8 warps of
-// 64 x 32; K goes in steps of 32 through two shared-memory stages.  The
-// int8 weight tile is widened to bf16 on its way into shared memory (exact:
-// |int8| < 2^8 fits bf16's 8-bit significand), so the tensor cores see a
-// plain bf16 product.  The next stage's global loads are issued before the
-// current stage's products and stored after them.  wgmma, TMA and split-K
-// (DiT's 1152-column products fill only 36 of 132 SMs) are later work.
+// against 11 MB = 3.3 us at 3.35 TB/s), so the kernel pays only if it keeps
+// the tensor cores busy.  Design:
+//
+// * wgmma with swapped operands, y^T = W^T x^T (CUTLASS's mixed-input
+//   scheme on Hopper).  A block computes 128 output columns for 128 rows of
+//   x with two consumer warpgroups; each owns 64 columns (the wgmma M) and
+//   issues m64n128k16 steps: A is the int8 weight widened to bf16 in
+//   registers, B the block's rows of x straight from shared memory by
+//   descriptor (K-major, 128-byte swizzle), so x needs no transpose.
+// * A producer warp feeds a STAGES-deep ring with the Tensor Memory
+//   Accelerator: per k tile of BK = 64, x's 128 x 64 tile (a tensor map,
+//   swizzled as wgmma reads it, rows at or past M zero-filled) and the int8
+//   weight's 4 x 2 KB of packed groups (bulk copies), completion counted by
+//   one mbarrier per stage; the consumer warps free a stage through a
+//   second mbarrier.  No barrier spans the block.
+// * The weight stays int8 in the ring.  It arrives packed in fragment
+//   order (ops/qmatmul.py:pack_weight): per 16 k x 32 n, one 512-byte group
+//   in which lane l = 4g + t finds, for each of the four n8 tiles, column g
+//   at k = 2t, 2t+8, 2t+1, 2t+9, the mma A/B fragment order.  A thread
+//   reads its 8 bytes per k16 step with one load and widens them in
+//   registers (`i8x2_to_bf16x2`, exact) while the previous tile's wgmma
+//   run; the weight's shared-memory bytes are half of bf16's.
+// * Split-K where the grid would leave SMs idle (ops/qmatmul.py:_qm_plan
+//   chooses it; the entry checks the plan).  Split s takes k tiles
+//   [s KT / S, (s + 1) KT / S) and writes its f32 partial tile to a
+//   workspace; a second kernel sums the S partials in the order s = 0, 1,
+//   ..., S - 1 and only then applies the scale and the bias.
+//   Deterministic: no atomics.
+//
+// Three other forms were built, right at every shape and slower at
+// DiT-XL/2's products (PERF.md §6): mma.sync with the same packing and
+// a cp.async ring; this wgmma form fed by cp.async from all threads with a
+// block barrier per stage; and A widened into shared memory (wgmma with
+// both operands there).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,12 +58,30 @@
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int THREADS = 256;
-constexpr int SA = BK + 8;  // A row stride (bf16): ldmatrix rows hit 8 bank groups
-constexpr int SB = BN + 8;  // B row stride (bf16), same reason
+constexpr int BK = 64;                       // k per ring stage
+constexpr int STAGES = 4;                    // ring depth
+constexpr int BN = 128;                      // output columns per block
+constexpr int BM = 128;                      // rows of x per block (the wgmma N)
+constexpr int THREADS = 256 + 32;            // two consumer warpgroups + the producer warp
+constexpr int GROUP = 512;                   // bytes of one packed 16 k x 32 n weight group
+constexpr int XSTAGE = BM * BK * 2;          // bytes of one x stage
+constexpr int WSTAGE = BN * BK;              // bytes of one int8 weight stage
+// the ring (x stages 1024-aligned), then 2 x STAGES mbarriers; + 1024 of
+// alignment slack
+constexpr int SMEM = 1024 + STAGES * (XSTAGE + WSTAGE) + 2 * STAGES * 8;
+
+// Two int8 values, in bytes 0 and 2 of w, widened exactly to a bf16x2
+// (byte 0 in the lower half).  With s = m - 128 b7 (m the low 7 bits, b7
+// the sign bit), 0x4300 | m is the bf16 128 + m and 0x4300 | (s & 0x80)
+// the bf16 128 or 256; their difference is s, an integer of at most 128
+// in magnitude and so exact in bf16.  Each mask-and-or is one lop3.
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t w) {
+  const uint32_t a = (w & 0x007f007fu) | 0x43004300u;
+  const uint32_t b = (w & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return bits(r);
+}
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -46,123 +90,337 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(THREADS)
-qmatmul_kernel(const __nv_bfloat16* __restrict__ x,
-               const int8_t* __restrict__ w, const float* __restrict__ s_w,
-               const float* __restrict__ bias, OutT* __restrict__ y, int M,
-               int N, int K) {
-  __shared__ __align__(16) __nv_bfloat16 As[2][BM][SA];  // [m][k]
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][BK][SB];  // [k][n]
+// ---- wgmma, mbarrier and TMA ------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// the compiler keeps r in place up to here: no non-wgmma instruction may
+// define a wgmma operand while the wgmma runs (else ptxas serialises them)
+__device__ __forceinline__ void keep(float& r) {
+  asm volatile("" : "+f"(r) :: "memory");
+}
+__device__ __forceinline__ void keep(uint32_t& r) {
+  asm volatile("" : "+r"(r) :: "memory");
+}
+__device__ __forceinline__ void keep(uint64_t& r) {
+  asm volatile("" : "+l"(r) :: "memory");
+}
+
+// shared-memory matrix descriptor: K-major rows of 128 bytes, 128-byte
+// swizzle, 8-row atoms 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d += A * B for one m64n128k16 step of a warpgroup: A (64 x 16 bf16) from
+// registers in mma.sync's A fragment layout (warp w holds rows 16w..16w+15),
+// B (16 x 128 bf16) from shared memory by descriptor, K-major; d in f32,
+// the m16n8 accumulator layout per n8 chunk (d[4i..4i+3]: chunk i)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+  } while (!ok);
+}
+// bytes contiguous bytes into shared memory, counted on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+// a 2-D box of a tensor map into shared memory, counted on bar
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(bar) : "memory");
+}
+
+// ---- the kernels ------------------------------------------------------------
+
+// xmap: x [M, K] bf16, boxes of 64 k x 128 rows, 128-byte swizzle; wp the
+// packed weight.  SPLIT: write the f32 partial sums of this block's k range
+// to ws[split][M][N] instead of y.
+template <typename OutT, bool SPLIT>
+__global__ void __launch_bounds__(THREADS, 1)
+qmatmul_kernel(const __grid_constant__ CUtensorMap xmap,
+               const int8_t* __restrict__ wp, const float* __restrict__ s_w,
+               const float* __restrict__ bias, OutT* __restrict__ y,
+               float* __restrict__ ws, int M, int N, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw_s = smem_addr(smem_raw);
+  unsigned char* Xs = smem_raw + (((raw_s + 1023) & ~1023u) - raw_s);  // [STAGES][128 rows][128 B]
+  int8_t* Ws = reinterpret_cast<int8_t*>(Xs + STAGES * XSTAGE);  // [STAGES][BK/16][BN/32][GROUP]
+  const uint32_t bars = smem_addr(Ws + STAGES * WSTAGE);  // full[STAGES], then empty[STAGES]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
-  const int wm = (warp >> 2) * 64;  // 2 warps down the rows
-  const int wn = (warp & 3) * 32;   // 4 warps across the columns
-
-  // global -> register staging: x as 2 passes of 64 rows x 4 chunks of 8
-  // bf16, w as 32 rows x 8 chunks of 16 int8
-  const int a_r = tid >> 2;
-  const int a_c = (tid & 3) * 8;
-  const int b_r = tid >> 3;
-  const int b_c = (tid & 7) * 16;
-  uint4 ra[2];
-  int4 rb;
-
-  auto load_tile = [&](int k0) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int row = m0 + a_r + 64 * p;
-      ra[p] = row < M ? *reinterpret_cast<const uint4*>(
-                            x + (long long)row * K + k0 + a_c)
-                      : make_uint4(0u, 0u, 0u, 0u);
-    }
-    rb = *reinterpret_cast<const int4*>(w + (long long)(k0 + b_r) * N + n0 +
-                                        b_c);
-  };
-  auto store_tile = [&](int buf) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p)
-      *reinterpret_cast<uint4*>(&As[buf][a_r + 64 * p][a_c]) = ra[p];
-    const int8_t* v = reinterpret_cast<const int8_t*>(&rb);
-    uint32_t pk[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      pk[j] = pack_bf16x2((float)v[2 * j], (float)v[2 * j + 1]);
-    *reinterpret_cast<uint4*>(&Bs[buf][b_r][b_c]) =
-        make_uint4(pk[0], pk[1], pk[2], pk[3]);
-    *reinterpret_cast<uint4*>(&Bs[buf][b_r][b_c + 8]) =
-        make_uint4(pk[4], pk[5], pk[6], pk[7]);
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
+  const int m0 = blockIdx.y * BM;
   const int KT = K / BK;
-  load_tile(0);
-  store_tile(0);
-  __syncthreads();
-  for (int kt = 0; kt < KT; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < KT) load_tile((kt + 1) * BK);
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t af[4][4];
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldsm_x4(af[mi], &As[cur][wm + mi * 16 + (lane & 15)][ks + (lane >> 4) * 8]);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, &Bs[cur][ks + (lane & 15)][wn + nj * 16 + (lane >> 4) * 8]);
-        bf[2 * nj][0] = r[0];
-        bf[2 * nj][1] = r[1];
-        bf[2 * nj + 1][0] = r[2];
-        bf[2 * nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+  const int kt0 = (int)((long long)blockIdx.z * KT / gridDim.z);
+  const int kt1 = (int)((long long)(blockIdx.z + 1) * KT / gridDim.z);
+  const int nk = kt1 - kt0;
+  const int ngroups = N / 32;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);             // the producer's arrival + bytes
+      mbar_init(bars + 8 * (STAGES + s), 8);  // one arrival per consumer warp
     }
-    // the other stage was last read before the previous barrier
-    if (kt + 1 < KT) store_tile(cur ^ 1);
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // the producer: one thread issues every copy
+    if (lane == 0) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % STAGES;
+        const int kt = kt0 + i;
+        if (i >= STAGES) mbar_wait(bars + 8 * (STAGES + s), ((i / STAGES) - 1) & 1);
+        mbar_expect_tx(bars + 8 * s, XSTAGE + WSTAGE);
+        tma_load_2d(smem_addr(Xs + s * XSTAGE), &xmap, kt * BK, m0, bars + 8 * s);
+#pragma unroll
+        for (int kb = 0; kb < BK / 16; ++kb)  // the block's 4 groups of each k16 row
+          bulk_load(smem_addr(Ws + s * WSTAGE + kb * (BN / 32) * GROUP),
+                    wp + ((long long)(kt * (BK / 16) + kb) * ngroups + n0 / 32) * GROUP,
+                    (BN / 32) * GROUP, bars + 8 * s);
+      }
+    }
+    return;
   }
 
-  // epilogue: per-column scale, bias, cast; c0,c1 at row g, c2,c3 at g+8
+  // consumers: warpgroup wg owns output columns n0 + 64 wg .., its warp wl
+  // 16 of them
+  const int wg = warp >> 2;
+  const int wl = warp & 3;
+  // this thread's 8 weight bytes of a 16 k x 32 n group: n8 tiles
+  // 2 (wl & 1) and 2 (wl & 1) + 1 of group 2 wg + wl / 2, i.e. columns g
+  // and g + 8 of the warp's 16
+  const int woff = (2 * wg + (wl >> 1)) * GROUP + lane * 16 + 8 * (wl & 1);
+  auto widen = [&](uint32_t (&af)[4][4], int stage) {
+    const int8_t* b = Ws + stage * WSTAGE;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint2 r = *reinterpret_cast<const uint2*>(b + ks * (BN / 32) * GROUP + woff);
+      af[ks][0] = i8x2_to_bf16x2(r.x);       // column g,     k 2t, 2t+1
+      af[ks][1] = i8x2_to_bf16x2(r.y);       // column g + 8, k 2t, 2t+1
+      af[ks][2] = i8x2_to_bf16x2(r.x >> 8);  // column g,     k 2t+8, 2t+9
+      af[ks][3] = i8x2_to_bf16x2(r.y >> 8);  // column g + 8, k 2t+8, 2t+9
+    }
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  uint32_t af0[4][4], af1[4][4];
+  // ptxas serialises the wgmma of a stage when a non-wgmma instruction
+  // defines one of its registers inside the stage: the keep() fences make
+  // the zeroing, each widening and each descriptor complete before the
+  // stage's wgmma.fence, and a wgmma's A registers live until its wait
+#pragma unroll
+  for (int i = 0; i < 64; ++i) keep(acc[i]);
+  mbar_wait(bars, 0);
+  widen(af0, 0);
+  // tile i: issue its 4 wgmma on af; while they run, wait for tile i + 1
+  // and widen it into next; retire tile i and free its stage
+  auto step = [&](uint32_t (&af)[4][4], uint32_t (&next)[4][4], int i) {
+    const int stage = i % STAGES;
+    const uint32_t xs = smem_addr(Xs + stage * XSTAGE);
+    uint64_t desc[4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      desc[ks] = desc_sw128(xs + ks * 32);
+      keep(desc[ks]);
+    }
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) keep(af[ks][e]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_m64n128k16_rs(acc, af[ks], desc[ks]);
+    wgmma_commit();
+    if (i + 1 < nk) {
+      const int s1 = (i + 1) % STAGES;
+      mbar_wait(bars + 8 * s1, ((i + 1) / STAGES) & 1);
+      widen(next, s1);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) keep(af[ks][e]);
+    if (lane == 0) mbar_arrive(bars + 8 * (STAGES + stage));  // this warp is done with it
+  };
+  for (int i = 0; i < nk; i += 2) {
+    step(af0, af1, i);
+    if (i + 1 < nk) step(af1, af0, i + 1);
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) keep(acc[i]);
+
+  // acc[4i + e]: column n0 + 64 wg + 16 wl + g (+ 8 for e >= 2), row
+  // m0 + 8 i + 2 t (+ 1 for odd e)
   const int g = lane >> 2;
   const int t = lane & 3;
+  const int nA = n0 + 64 * wg + 16 * wl + g;
+  float sc[2] = {0.f, 0.f}, bb[2] = {0.f, 0.f};
+  if (!SPLIT) {
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int col = n0 + wn + ni * 8 + 2 * t;
-    const float s0 = s_w[col], s1 = s_w[col + 1];
-    const float b0 = bias != nullptr ? bias[col] : 0.f;
-    const float b1 = bias != nullptr ? bias[col + 1] : 0.f;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm + mi * 16 + g + 8 * h;
-        if (row < M) {
-          // two rounded operations, as the plain version computes them
-          const float v0 = __fadd_rn(__fmul_rn(acc[mi][ni][2 * h], s0), b0);
-          const float v1 = __fadd_rn(__fmul_rn(acc[mi][ni][2 * h + 1], s1), b1);
-          store2(y + (long long)row * N + col, v0, v1);
-        }
-      }
+    for (int h = 0; h < 2; ++h) {
+      sc[h] = s_w[nA + 8 * h];
+      bb[h] = bias != nullptr ? bias[nA + 8 * h] : 0.f;
     }
   }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = m0 + 8 * i + 2 * t + (e & 1);
+      const int col = nA + 8 * (e >> 1);
+      if (row >= M) continue;
+      if (SPLIT)
+        ws[((long long)blockIdx.z * M + row) * N + col] = acc[4 * i + e];
+      else  // two rounded operations, as the plain version computes them
+        y[(long long)row * N + col] =
+            OutT(__fadd_rn(__fmul_rn(acc[4 * i + e], sc[e >> 1]), bb[e >> 1]));
+    }
+  }
+}
+
+// y = (ws[0] + ws[1] + ... + ws[S-1]) * s_w + bias, summed in that order;
+// one thread per 4 consecutive outputs of a row (N % 4 == 0)
+template <typename OutT>
+__global__ void __launch_bounds__(256)
+qmatmul_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ s_w,
+                      const float* __restrict__ bias, OutT* __restrict__ y,
+                      int M, int N, int S) {
+  const long long e = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  const long long mn = (long long)M * N;
+  if (e >= mn) return;
+  const int col = (int)(e % N);
+  float4 acc = *reinterpret_cast<const float4*>(ws + e);
+  for (int s = 1; s < S; ++s) {
+    const float4 p = *reinterpret_cast<const float4*>(ws + s * mn + e);
+    acc.x = __fadd_rn(acc.x, p.x);
+    acc.y = __fadd_rn(acc.y, p.y);
+    acc.z = __fadd_rn(acc.z, p.z);
+    acc.w = __fadd_rn(acc.w, p.w);
+  }
+  const float4 sc = *reinterpret_cast<const float4*>(s_w + col);
+  const float4 bb = bias != nullptr ? *reinterpret_cast<const float4*>(bias + col)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+  store2(y + e, __fadd_rn(__fmul_rn(acc.x, sc.x), bb.x),
+         __fadd_rn(__fmul_rn(acc.y, sc.y), bb.y));
+  store2(y + e + 2, __fadd_rn(__fmul_rn(acc.z, sc.z), bb.z),
+         __fadd_rn(__fmul_rn(acc.w, sc.w), bb.w));
+}
+
+template <typename OutT, bool SPLIT>
+int launch(dim3 grid, cudaStream_t st, const CUtensorMap& xmap,
+           const void* wp, const float* s_w, const float* bias, void* y,
+           float* ws, int M, int N, int K) {
+  auto kern = qmatmul_kernel<OutT, SPLIT>;
+  static bool opted = false;  // above 48 KB only after this opt-in
+  if (!opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return (int)err;
+    opted = true;
+  }
+  kern<<<grid, THREADS, SMEM, st>>>(xmap, static_cast<const int8_t*>(wp),
+                                    s_w, bias, static_cast<OutT*>(y), ws, M,
+                                    N, K);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !SPLIT) return (int)err;
+  const long long quads = (long long)M * N / 4;
+  qmatmul_reduce_kernel<OutT><<<(unsigned)((quads + 255) / 256), 256, 0, st>>>(
+      ws, s_w, bias, static_cast<OutT*>(y), M, N, (int)grid.z);
+  return (int)cudaGetLastError();
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The tensor map of x [M, K] bf16 (K contiguous): boxes of BK x BM with the
+// 128-byte swizzle that wgmma's B descriptor expects; rows past M read as
+// zeros.
+int tensor_map(CUtensorMap* map, const void* x, int M, int K) {
+  static EncodeTiled encode = nullptr;  // libcuda's, looked up at run time
+  if (!encode) {
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
+        cudaEnableDefault, &q);
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess || !encode) {
+      encode = nullptr;
+      return (int)cudaErrorSymbolNotFound;
+    }
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t box[2] = {BK, BM};
+  const cuuint32_t one[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x),
+                dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 0
+             : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -173,25 +431,33 @@ const char* natdiff_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// out_dtype: 0 = float32, 1 = bfloat16.  x bf16 [M, K], w int8 [K, N],
-// s_w f32 [N], bias f32 [N] or null, y [M, N] of out_dtype; all contiguous
-// and 16-byte aligned, K % 32 == 0 and N % 128 == 0 (checked by the Python
-// wrapper).
-int natdiff_qmatmul(int out_dtype, const void* x, const void* w,
-                    const float* s_w, const float* bias, void* y, int M, int N,
-                    int K, void* stream) {
-  if (K % BK != 0 || N % BN != 0 || M <= 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)(N / BN), (unsigned)((M + BM - 1) / BM));
+// out_dtype: 0 = float32, 1 = bfloat16.  x bf16 [M, K]; wp the int8 weight
+// packed by ops/qmatmul.py:pack_weight ([K/16][N/32][512]); s_w f32 [N];
+// bias f32 [N] or null; y [M, N] of out_dtype; ws f32 [splits, M, N] when splits > 1,
+// else null.  All contiguous and 16-byte aligned.  The plan (bm, bn, bk,
+// stages, splits, smem, from ops/qmatmul.py:_qm_plan) must agree with this
+// file's constants, else nothing runs.
+int natdiff_qmatmul(int out_dtype, const void* x, const void* wp,
+                    const float* s_w, const float* bias, void* y, float* ws,
+                    int M, int N, int K, int bm, int bn, int bk, int stages,
+                    int splits, int smem, void* stream) {
+  if (bm != BM || bn != BN || bk != BK || stages != STAGES || smem != SMEM ||
+      M <= 0 || N % BN != 0 || K % BK != 0 || K <= 0 || splits < 1 ||
+      splits > K / BK || (splits > 1) != (ws != nullptr) ||
+      (M + BM - 1) / BM > 65535 || splits > 65535 ||
+      (out_dtype != 0 && out_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap xmap;
+  const int err = tensor_map(&xmap, x, M, K);
+  if (err) return err;
+  dim3 grid((unsigned)(N / BN), (unsigned)((M + BM - 1) / BM), (unsigned)splits);
   cudaStream_t st = (cudaStream_t)stream;
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  const int8_t* wi = static_cast<const int8_t*>(w);
   if (out_dtype == 0)
-    qmatmul_kernel<float><<<grid, THREADS, 0, st>>>(
-        xb, wi, s_w, bias, static_cast<float*>(y), M, N, K);
-  else
-    qmatmul_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        xb, wi, s_w, bias, static_cast<__nv_bfloat16*>(y), M, N, K);
-  return (int)cudaGetLastError();
+    return splits > 1 ? launch<float, true>(grid, st, xmap, wp, s_w, bias, y, ws, M, N, K)
+                      : launch<float, false>(grid, st, xmap, wp, s_w, bias, y, ws, M, N, K);
+  return splits > 1
+             ? launch<__nv_bfloat16, true>(grid, st, xmap, wp, s_w, bias, y, ws, M, N, K)
+             : launch<__nv_bfloat16, false>(grid, st, xmap, wp, s_w, bias, y, ws, M, N, K);
 }
 
 }  // extern "C"

@@ -110,16 +110,18 @@ class QDense(Dense):
 
     With ``quant == "w8"`` and ``qmatmul_ok(M, K, N)`` the product runs on
     ``(w_i8, s_w) = quantize_weight(kernel in the compute type)``, made once
-    per state of the kernel and kept beside it (not a parameter or buffer):
-    the same bf16-rounded weights give the same int8 values as the JAX
-    package's in-graph quantization.  The gate is checked per call, since M
-    depends on the batch."""
+    per state of the kernel and kept beside it (not a parameter or buffer),
+    with ``pack_weight(w_i8)``, the form kernel K7 reads: the same
+    bf16-rounded weights give the same int8 values as the JAX package's
+    in-graph quantization.  The gate is checked per call, since M depends
+    on the batch."""
 
     def __init__(self, fin: int, fout: int):
         super().__init__(fin, fout)
         self.quant = None
         self._q_key = None
         self._q = None
+        self._packed = None
 
     def _quantized(self, dt):
         k = self.kernel
@@ -130,6 +132,7 @@ class QDense(Dense):
             with torch.no_grad():
                 w_i8, s_w = quantize_weight(k.to(dt), axis=-1)
                 b32 = self.bias.to(dt).to(torch.float32)
+                self._packed = Q.pack_weight(w_i8).contiguous()
             self._q, self._q_key = (w_i8, s_w.reshape(-1), b32), key
         return self._q
 
@@ -139,7 +142,7 @@ class QDense(Dense):
             if Q.qmatmul_ok(x.numel() // kk, kk, n):
                 dt = _promote(x, self.kernel)
                 w_i8, s_w, b32 = self._quantized(dt)
-                return Q.matmul_wdq(x.to(dt), w_i8, s_w, b32)
+                return Q.matmul_wdq(x.to(dt), w_i8, s_w, b32, self._packed)
         return super().forward(x)
 
 

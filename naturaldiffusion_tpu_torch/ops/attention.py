@@ -22,6 +22,7 @@ its pad keys.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -31,17 +32,59 @@ from . import _cuda
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 72)
 # natdiff_flash_attention(dtype, d, q, k, v, o, s_b, s_h, s_t, o_b, o_h,
-# o_t, B, H, T, scale_log2, stream)
+# o_t, B, H, T, scale_log2, warps, stages, smem, stream)
 _FA_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
                 + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
-                + [ctypes.c_float, ctypes.c_void_p])
+                + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 # natdiff_splash_attention(dtype, d, q, k, v, o, lse, s_b, s_h, s_t, o_b,
-# o_h, o_t, B, H, T, stream)
+# o_h, o_t, B, H, T, warps, stages, smem, stream)
 _SPLASH_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
-                    + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
+                    + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 6
                     + [ctypes.c_void_p])
+
+# --- the kernel's block plan ---------------------------------------------------
+# constants of csrc/attention.cu (the entry checks them): keys per tile,
+# stages of the bf16 kernel's K/V ring, queries per warp
+_BKV, _RING_STAGES, _WARP_ROWS = 64, 3, 16
+# blocks a bf16 launch of 8 warps should reach, else it takes 4 warps: two
+# per SM of the card's 132
+_MIN_BLOCKS_8 = 264
 _UNPORTED = {"ring": "ring attention comes with the parallelism slice "
                      "(ROADMAP.md, Queue A, slice 8)"}
+
+
+def _attn_plan(b: int, h: int, t: int, d: int, dtype) -> dict:
+    """The tile loop's launch for ``[b, h, t, d]``.  bfloat16: blocks of 8
+    warps (128 queries) where d <= 64 and that grid still reaches
+    ``_MIN_BLOCKS_8`` blocks, else of 4 warps (64 queries); the K/V ring's
+    shared memory.  float32: the split kernel's fixed blocks of 4 warps, no
+    ring (stages and smem 0).  Block ``(x, y)`` writes queries ``[x bq, (x + 1) bq)``
+    below t of head ``y``; key tile ``j`` holds keys ``[64 j, 64 j + 64)``,
+    masked past t only in the last, ragged one.  Pure: the CPU tests walk
+    it, and the C entry checks it against its own constants."""
+    if t <= 0 or b <= 0 or h <= 0 or d not in _HEAD_DIMS:
+        raise ValueError(f"attention: no plan for {(b, h, t, d)}")
+    tiles = -(-t // _BKV)
+    if dtype == torch.float32:
+        warps, stages, smem = 4, 0, 0
+    else:
+        warps = (8 if d <= 64 and -(-t // (8 * _WARP_ROWS)) * b * h
+                 >= _MIN_BLOCKS_8 else 4)
+        sk = -(-d // 16) * 16 + 8           # row stride of Q, K, V tiles
+        stages = _RING_STAGES
+        smem = (_WARP_ROWS * warps + 2 * stages * _BKV) * sk * 2
+    bq = _WARP_ROWS * warps
+    return dict(warps=warps, bq=bq, stages=stages, smem=smem,
+                grid=(-(-t // bq), b * h), key_tiles=tiles,
+                masked_tiles=[tiles - 1] if t % _BKV else [])
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_ints(b: int, h: int, t: int, d: int, dtype) -> tuple:
+    """:func:`_attn_plan` as the C entries take it, cached: a launch's
+    host time counts on the host-bound DiT path."""
+    p = _attn_plan(b, h, t, d, dtype)
+    return p["warps"], p["stages"], p["smem"]
 
 
 def mha_reference(q, k, v, sm_scale: float):
@@ -109,16 +152,17 @@ def _launch(q, k, v, sm_scale, lse: bool, what: str):
             out.data_ptr())
     strides = (st[0], st[1], st[2], out.stride(0), out.stride(2),
                out.stride(1), b, h, t)
+    plan = _plan_ints(b, h, t, d, q.dtype)
     with _cuda.on_device(q):
         if sm_scale is None:
             fn = _cuda.entry("attention", "natdiff_splash_attention",
                              _SPLASH_ARGTYPES)
             err = fn(*args, None if res is None else res.data_ptr(),
-                     *strides, _cuda.stream_ptr(q))
+                     *strides, *plan, _cuda.stream_ptr(q))
         else:
             fn = _cuda.entry("attention", "natdiff_flash_attention",
                              _FA_ARGTYPES)
-            err = fn(*args, *strides, sm_scale * math.log2(math.e),
+            err = fn(*args, *strides, sm_scale * math.log2(math.e), *plan,
                      _cuda.stream_ptr(q))
     _cuda.check("attention", err, what)
     return out.transpose(1, 2), res

@@ -116,3 +116,101 @@ def test_xla_backend_matches_jax_in_bf16(d):
     assert 1e-3 < control < 5e-2
     err = float(np.linalg.norm(got16 - want16) / np.linalg.norm(want16))
     assert err <= XLA_BF16_CONTROL_FACTOR * control
+
+
+# --- the tile loop's block plan (csrc/attention.cu) --------------------------
+
+# (b, h, t, d): DiT-XL/2's call, SD3's three joint lengths, and lengths of
+# one key, one short of a tile, one past it, and unaligned
+PLAN_SHAPES = [(2, 16, 256, 72), (2, 24, 4096, 64), (2, 24, 4250, 64),
+               (2, 24, 4429, 64), (2, 3, 1, 16), (2, 3, 63, 32),
+               (2, 3, 65, 64), (2, 3, 250, 72)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,t,d", PLAN_SHAPES)
+def test_attn_plan_covers_each_query_once(b, h, t, d, dtype):
+    """Each query row of each head is written by exactly one block; the
+    key tiles cover [0, t) in order and only the last one, when t is not a
+    multiple of 64, is masked; the bf16 ring fits two blocks on an SM."""
+    p = A._attn_plan(b, h, t, d, dtype)
+    assert p == A._attn_plan(b, h, t, d, dtype)          # pure
+    gx, gy = p["grid"]
+    assert gy == b * h and p["bq"] == 16 * p["warps"]
+    writes = np.zeros(gx * p["bq"], np.int64)
+    for bx in range(gx):
+        writes[bx * p["bq"]:(bx + 1) * p["bq"]] += 1
+    assert (writes[:t] == 1).all() and gx * p["bq"] - t < p["bq"]
+    keys = np.zeros(p["key_tiles"] * A._BKV, np.int64)
+    for j in range(p["key_tiles"]):
+        keys[j * A._BKV:(j + 1) * A._BKV] += 1
+    assert (keys[:t] == 1).all() and len(keys) - t < A._BKV
+    assert p["masked_tiles"] == ([p["key_tiles"] - 1] if t % A._BKV else [])
+    if dtype == torch.float32:
+        assert (p["warps"], p["stages"], p["smem"]) == (4, 0, 0)
+    else:
+        assert p["warps"] in (4, 8) and p["stages"] == A._RING_STAGES
+        assert 2 * p["smem"] <= 233_472
+
+
+def test_attn_plan_at_the_path_shapes():
+    """8-warp blocks at SD3's lengths (over 1600 blocks); DiT-XL/2's 4 x 32
+    grid keeps 4-warp blocks, one per SM."""
+    bf = torch.bfloat16
+    assert A._attn_plan(2, 16, 256, 72, bf)["warps"] == 4
+    assert A._attn_plan(2, 16, 256, 72, bf)["grid"] == (4, 32)
+    for t in (4096, 4250, 4429):
+        p = A._attn_plan(2, 24, t, 64, bf)
+        assert p["warps"] == 8 and math.prod(p["grid"]) >= 1536
+
+
+def _walk_plan(q, k, v, sm_scale):
+    """The tile loop as its plan runs it, in float32 torch: per block of
+    queries, the key tiles in order with the online softmax (running max
+    and sum, rescaled accumulator), the index mask only on the plan's
+    masked tiles, keys past t read as zeros."""
+    b, h, t, d = q.shape
+    p = A._attn_plan(b, h, t, d, torch.bfloat16)
+    n = p["key_tiles"] * A._BKV
+    kp = torch.zeros((b, h, n, d))
+    vp = torch.zeros((b, h, n, d))
+    kp[:, :, :t], vp[:, :, :t] = k, v
+    out = torch.full((b, h, t, d), float("nan"))
+    for y in range(p["grid"][1]):
+        bi, hi = divmod(y, h)
+        for bx in range(p["grid"][0]):
+            rows = slice(bx * p["bq"], min(t, (bx + 1) * p["bq"]))
+            qq = q[bi, hi, rows]
+            m = torch.full((qq.shape[0], 1), -math.inf)
+            l = torch.zeros((qq.shape[0], 1))
+            acc = torch.zeros((qq.shape[0], d))
+            for j in range(p["key_tiles"]):
+                keys = slice(j * A._BKV, (j + 1) * A._BKV)
+                s = qq @ kp[bi, hi, keys].T * sm_scale
+                if j in p["masked_tiles"]:
+                    s[:, torch.arange(j * A._BKV, (j + 1) * A._BKV) >= t] = \
+                        -math.inf
+                m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
+                alpha = torch.exp(m - m_new)
+                e = torch.exp(s - m_new)
+                l = l * alpha + e.sum(dim=1, keepdim=True)
+                acc = acc * alpha + e @ vp[bi, hi, keys]
+                m = m_new
+            out[bi, hi, rows] = acc / l
+    return out
+
+
+@pytest.mark.parametrize("t,d", [(1, 16), (63, 32), (65, 64), (250, 72),
+                                 (256, 72)])
+def test_attn_plan_walk_matches_reference_and_jax(t, d):
+    """The plan's tile walk (float32) against the plain version of K9 and
+    JAX's ``mha`` (float32 einsum pair) at the tolerance of
+    test_reference_matches_jax."""
+    q, k, v = _qkv(t, d, seed=t + d)
+    sc = 1.0 / math.sqrt(d)
+    got = _walk_plan(*(torch.from_numpy(a) for a in (q, k, v)), sc)
+    ref = A.mha_reference(*(torch.from_numpy(a) for a in (q, k, v)), sc)
+    want = np.asarray(jax_mha(*(jnp.asarray(a) for a in (q, k, v)),
+                              backend="xla"))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
