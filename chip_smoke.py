@@ -8,13 +8,17 @@ printed as one line with its numbers and seconds as it ends:
   env      the card (``nvidia-smi`` name and power limit), torch and CUDA.
   build    ``nvcc`` builds the kernels of ``naturaldiffusion_tpu_torch/csrc``;
            prints the registers and spills of every conv3x3.cu,
-           qmatmul.cu and attention.cu kernel and fails if one spills.
+           qmatmul.cu, attention.cu, group_norm.cu and weighted_sum.cu
+           kernel and fails if one spills.
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes the main path gives it (recorded from one batch-64
            forward), then timed (CUDA events, median, L2 flushed) beside the
            plain version, one PyTorch library call and the card's bound;
-           each timed conv with its tile plan, TFLOP/s and bound share.
-           Then the bf16 conv kernel at ragged shapes of no model.
+           each timed conv with its tile plan, TFLOP/s and bound share;
+           K1 with its achieved GB/s and timed at every row split, also at
+           DiT's latent; K6 at the forward's standalone GroupNorms, with its
+           form, cluster, bound share and host time a call.  Then the bf16
+           conv kernel at ragged shapes of no model.
   forward  one full-width CIFAR-10 NCSN++ forward on 2 images in float32:
            the card (kernels) against the CPU (plain versions).
   slice    the main path: 10-step DDPM Natural Inference over a batch of 64
@@ -40,7 +44,10 @@ printed as one line with its numbers and seconds as it ends:
   ve_kernels    kernels K4 (halo-tiled conv, serving K5 too) and K6
            (GroupNorm) against their plain versions at every shape one
            batch-4 bf16 forward of the full-width CelebA-HQ 256 VE NCSN++
-           gives them, f32 and bf16, then timed as in ``kernels``.
+           gives them, f32 and bf16, then timed as in ``kernels``; K6 also
+           in the form its plan does not pick at a few shapes, and at
+           ragged shapes of no model, each row with its form, cluster,
+           bound share and host time a call.
   ve_forward    one full-width VE NCSN++ forward at one image in float32:
            the card against the CPU; then one level-0 resblock in its
            unfused form (the path's) against its fused form, timed, and
@@ -182,6 +189,28 @@ JOINT_BF16_TOL = 1e-2
 K8_PATH_SHAPES = ((64, 32, 32, 128), (4, 256, 256, 128))
 K8_CHECK_SHAPES = K8_PATH_SHAPES + ((3, 300, 128), (5, 7, 3), (2, 9, 12))
 
+# K6 at shapes of no model, both forms: C = 12 in 3 groups and C = 16 in 4
+# (slices narrower than a 16-byte vector or a 32-byte sector), 7 x 5 maps,
+# one sample, extra-bias rows 1 and B
+K6_RAGGED = (((1, 7, 5, 12), 3, "silu", 1), ((1, 7, 5, 16), 4, None, None),
+             ((2, 7, 5, 16), 4, "silu", 2), ((3, 7, 5, 12), 3, None, 1))
+# the forms K6 also runs in (checked and timed) where its plan picks one:
+# each form after it, for a unit that fits an on-chip cluster fits the
+# grid, and every shape fits the streamed form
+K6_OTHER = {"onchip": ("grid", "streamed"), "grid": ("streamed",),
+            "streamed": ()}
+# VE shapes at which K6 also runs in its other forms: the grid form picked
+# at the 256 x 256 maps and the streamed form; the on-chip form cannot be
+# forced at those, a unit of them exceeds a cluster
+K6_FORCED = (((4, 256, 256, 128), 32, "silu", 4),
+             ((4, 128, 128, 384), 32, "silu", None),
+             ((4, 128, 128, 128), 32, "silu", 4),
+             ((4, 64, 64, 384), 32, "silu", None),
+             ((4, 16, 16, 256), 32, None, None))
+# DiT-XL/2's NI sum at one image: the latent [1, 32, 32, 4], the last of
+# 50 steps (50 x rows, 51 eps rows)
+K1_DIT = (4096, 50, 51)
+
 T0 = time.perf_counter()
 
 
@@ -223,13 +252,17 @@ class Timer:
     timed run (the main path finds these operands cold).  A ~1 ms device
     spin is queued after the flush, so the wrapper's host time (tens of
     microseconds per launch) is spent while the card is still busy and
-    never lands between the two events."""
+    never lands between the two events.  The flush writes, so the timed
+    call also pays for writing back up to 50 MB of dirty lines as it
+    evicts them; with ``clean`` a read of another 256 MB follows the flush
+    and leaves the L2 holding clean lines instead."""
 
-    def __init__(self, torch, reps=7):
+    def __init__(self, torch, reps=7, clean=False):
         self.torch = torch
         self.reps = reps
         self.flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
                                  device="cuda")
+        self.clean = torch.empty_like(self.flush) if clean else None
 
     def __call__(self, fn):
         torch = self.torch
@@ -237,6 +270,8 @@ class Timer:
         ts = []
         for _ in range(self.reps):
             self.flush.zero_()
+            if self.clean is not None:
+                self.clean.sum()
             torch.cuda._sleep(SPIN_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -342,7 +377,8 @@ def phase_build():
 
 # sources whose every kernel instance the build phase lists and holds to
 # zero spills
-PTXAS_CHECKED = ("conv3x3", "qmatmul", "attention")
+PTXAS_CHECKED = ("conv3x3", "qmatmul", "attention", "group_norm",
+                 "weighted_sum")
 
 
 def kernel_name(mangled):
@@ -502,6 +538,19 @@ def check_ragged_convs(torch, C, gen):
     return out
 
 
+def k1_splits(torch, WS, timer, wx, we, bufx, bufe, lx, le):
+    """K1 checked and timed at every row split, the plan's among them."""
+    want = WS.fused_weighted_sum_reference(wx, we, bufx, bufe, lx, le)
+    ms, err = {}, 0.0
+    for split in WS.SPLITS:
+        got = WS._launch(wx, we, bufx, bufe, lx, le, split)
+        err = max(err, check_close(f"K1 weighted_sum split {split}", got,
+                                   want, F32_TOL)[0])
+        ms[split] = timer(lambda: WS._launch(wx, we, bufx, bufe, lx, le,
+                                             split))
+    return dict(ms_by_split=ms, max_abs_err_splits=err)
+
+
 def phase_kernels(model_bf16, details):
     import torch
     import torch.nn.functional as F
@@ -542,7 +591,28 @@ def phase_kernels(model_bf16, details):
         bound_by="bytes",
         library_ms=timer(lambda: torch.matmul(w_cat, b_cat)))
     out.append(k1)
-    details["weighted_sum"] = dict(M=m, live_x=lx, live_e=le, bytes=nbytes)
+    clean = Timer(torch, clean=True)
+    details["weighted_sum"] = dict(
+        M=m, live_x=lx, live_e=le, bytes=nbytes,
+        ms_clean_l2=clean(lambda: WS.fused_weighted_sum(wx, we, bufx, bufe,
+                                                        lx, le)),
+        split=WS._ws_plan(m, lx, le)["split"],
+        gb_per_s=nbytes / k1["ms"] / 1e6,
+        **k1_splits(torch, WS, timer, wx, we, bufx, bufe, lx, le))
+    # and at DiT's latent, where the plan splits the rows most
+    md, dx, de = K1_DIT
+    dw = torch.randn((2, max(dx, de)), generator=gen, device="cuda")
+    dbx = torch.randn((dx, md), generator=gen, device="cuda")
+    dbe = torch.randn((de, md), generator=gen, device="cuda")
+    details["weighted_sum_dit"] = dict(
+        M=md, live_x=dx, live_e=de, split=WS._ws_plan(md, dx, de)["split"],
+        bound_ms=4 * ((dx + de) * md + md) / HBM_BYTES_PER_S * 1e3,
+        library_ms=timer(lambda: torch.matmul(
+            torch.cat([dw[0, :dx], dw[1, :de]]).reshape(1, -1),
+            torch.cat([dbx, dbe]))),
+        ms_clean_l2=clean(lambda: WS.fused_weighted_sum(dw[0], dw[1], dbx,
+                                                        dbe, dx, de)),
+        **k1_splits(torch, WS, timer, dw[0], dw[1], dbx, dbe, dx, de))
 
     # K2 / K3 at every conv shape and option set of one batch-64 forward
     x = torch.randn((BATCH, 32, 32, 3), generator=gen,
@@ -629,6 +699,17 @@ def phase_kernels(model_bf16, details):
     host["torch.add"] = host_us(torch, lambda: torch.add(bufx, 1.0))
     details["host_us_per_launch"] = host
 
+    # K6 at the forward's standalone GroupNorms (the fused resblocks fold
+    # theirs into K3's prologue)
+    k6_rows = [k6_row(torch, sg, n, timer, gen, clean=clean)
+               for (kind, sg), n in allsigs.items() if kind == "group_norm"]
+    details["cifar_group_norm"] = k6_rows
+    details["cifar_group_norm_per_forward"] = {
+        k: sum(r[k] * r["per_forward"] for r in k6_rows)
+        for k in ("ms", "ms_clean_l2", "plain_ms", "library_ms", "bound_ms")}
+    for r in k6_rows:
+        print_k6_row(r)
+
     meta = {"conv3x3": ("naturaldiffusion_tpu/ops/conv3x3.py:200", n_plain),
             "conv3x3_gn": ("naturaldiffusion_tpu/ops/conv3x3.py:600", n_gn)}
     for kind, (replaces, _) in meta.items():
@@ -654,15 +735,24 @@ def phase_kernels(model_bf16, details):
         for r in rows[kind]:
             if r["per_forward"]:
                 print_conv_row(kind, r)
-    rate = {"weighted_sum": f"{nbytes / k1['ms'] / 1e6:.1f} GB/s"}
+    rate = {"weighted_sum": f"{nbytes / k1['ms'] / 1e6:.1f} GB/s at split "
+                            f"{details['weighted_sum']['split']}"}
     for kind in rows:
         d = details[f"{kind}_per_forward"]
         rate[kind] = f"{d['flops'] / d['ms'] / 1e9:.2f} TFLOP/s"
     phase("kernels", t,
           checks={k: len(v) for k, v in rows.items()},
           tolerances=dict(f32=F32_TOL, bf16=BF16_TOL, stats=STATS_TOL),
-          per_forward_launches={"conv3x3": n_plain, "conv3x3_gn": n_gn},
+          per_forward_launches={"conv3x3": n_plain, "conv3x3_gn": n_gn,
+                                "group_norm": n_k6},
           host_us_per_launch={k: round(v, 2) for k, v in host.items()},
+          k1_ms_by_split={"cifar": details["weighted_sum"]["ms_by_split"],
+                          "dit": details["weighted_sum_dit"]["ms_by_split"]},
+          k1_ms_clean_l2={"cifar": details["weighted_sum"]["ms_clean_l2"],
+                          "dit": details["weighted_sum_dit"]["ms_clean_l2"]},
+          k1_dit_bound_ms=details["weighted_sum_dit"]["bound_ms"],
+          k6_per_forward={k: round(v, 4) for k, v in details[
+              "cifar_group_norm_per_forward"].items()},
           kernels={k["name"]: dict(
               {f: round(k[f], 4) for f in ("ms", "plain_ms", "library_ms",
                                           "bound_ms")},
@@ -1291,6 +1381,71 @@ def gn_inputs(torch, sig, dtype, gen):
     return x, scale, bias, eb
 
 
+def k6_row(torch, sig, mult, timer, gen, other_form=False, clean=None):
+    """K6 at one signature ``((b, h, w, c), groups, act, extra-bias rows)``
+    against its plain version in f32 and bf16, in its plan's form and, with
+    ``other_form``, in the forms after it in ``K6_OTHER`` (those the shape
+    also fits); then timed in bf16 beside the plain version,
+    ``F.group_norm`` and the bytes bound, with the host time a call, and by
+    the ``clean`` timer where one is given.  ``mult``: launches per
+    forward."""
+    import torch.nn.functional as F
+    from naturaldiffusion_tpu_torch.ops import group_norm as G
+    (b, h, w, c), groups, act, eb_rows = sig
+    row = dict(sig=repr(sig), per_forward=mult)
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        xx, sc, bi, eb = gn_inputs(torch, sig, dtype, gen)
+        kw = dict(act=act, extra_bias=eb)
+        want = G.fused_group_norm_reference(xx, sc, bi, groups, **kw)
+        plan = G._gn_plan(b, h, w, c, groups, xx.element_size())
+        dn = str(dtype)
+        row[f"err_{dn}"], row[f"rel_err_{dn}"] = check_close(
+            f"K6 group_norm {sig} {dn} {plan['form']}",
+            G.fused_group_norm(xx, sc, bi, groups, **kw), want, tol)
+        others = K6_OTHER[plan["form"]] if other_form else ()
+        for other in others:
+            row[f"err_{dn}_{other}"], row[f"rel_err_{dn}_{other}"] = (
+                check_close(f"K6 group_norm {sig} {dn} {other}", G._launch(
+                    xx, sc, bi, groups, 1e-6, act, eb, other), want, tol))
+        if dtype != torch.bfloat16:
+            continue
+        xn = xx.permute(0, 3, 1, 2)
+        sc16, bi16 = sc.to(dtype), bi.to(dtype)
+        nbytes = 2 * 2 * b * h * w * c + 4 * 2 * c + (
+            0 if eb is None else 2 * eb.numel())
+        row.update(
+            form=plan["form"], cluster=plan["cluster"],
+            vec_bytes=plan["vec_bytes"], slice=plan["slice"],
+            device_launches=plan["launches"],
+            ms=timer(lambda: G.fused_group_norm(xx, sc, bi, groups, **kw)),
+            plain_ms=timer(lambda: G.fused_group_norm_reference(
+                xx, sc, bi, groups, **kw)),
+            library_ms=timer(lambda: F.group_norm(xn, groups, sc16, bi16,
+                                                  1e-6)),
+            bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes",
+            host_us=host_us(torch, lambda: G.fused_group_norm(
+                xx, sc, bi, groups, **kw), n=50))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        if clean is not None:
+            row["ms_clean_l2"] = clean(lambda: G.fused_group_norm(
+                xx, sc, bi, groups, **kw))
+        for other in others:
+            row[f"ms_{other}"] = timer(lambda: G._launch(
+                xx, sc, bi, groups, 1e-6, act, eb, other))
+    return row
+
+
+def print_k6_row(r):
+    other = "".join(f", {k[3:]} {v:.4f}" for k, v in r.items()
+                    if k in ("ms_clean_l2", "ms_grid", "ms_streamed"))
+    print(f"  group_norm {r['sig']} x{r['per_forward']}: {r['form']} "
+          f"cluster {r['cluster']}, {r['ms']:.4f} ms{other}, bound "
+          f"{r['bound_ms']:.4f} ({r['bound_share']:.0%}), plain "
+          f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, host "
+          f"{r['host_us']:.1f} us", flush=True)
+
+
 def phase_ve_kernels(model_bf16, details):
     """K4 and K6 at every shape of one batch-4 bf16 forward of the
     full-width VE model (and K4 at the three shapes named for it), against
@@ -1341,35 +1496,19 @@ def phase_ve_kernels(model_bf16, details):
                  row["bound_by"]) = conv_cost(sg, 2, dn)
                 row["plan"] = plan_of(sg)
         rows["conv3x3_tiled"].append(row)
+    clean = Timer(torch, clean=True)
     for (kind, sg), mult in sigs.items():
-        if kind != "group_norm":
-            continue
-        (b, h, w, c), groups, act, eb_rows = sg
-        row = dict(sig=repr(sg), per_forward=mult)
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16,
-                                                      BF16_TOL)):
-            xx, sc, bi, eb = gn_inputs(torch, sg, dtype, gen)
-            kw = dict(act=act, extra_bias=eb)
-            got = G.fused_group_norm(xx, sc, bi, groups, **kw)
-            want = G.fused_group_norm_reference(xx, sc, bi, groups, **kw)
-            dn = str(dtype)
-            row[f"err_{dn}"], row[f"rel_err_{dn}"] = check_close(
-                f"K6 group_norm {sg} {dn}", got, want, tol)
-            if dtype == torch.bfloat16:
-                xn = xx.permute(0, 3, 1, 2)
-                sc16, bi16 = sc.to(dtype), bi.to(dtype)
-                nbytes = 2 * 2 * b * h * w * c + 4 * 2 * c + (
-                    0 if eb is None else 2 * eb.numel())
-                row.update(
-                    ms=timer(lambda: G.fused_group_norm(xx, sc, bi, groups,
-                                                        **kw)),
-                    plain_ms=timer(lambda: G.fused_group_norm_reference(
-                        xx, sc, bi, groups, **kw)),
-                    library_ms=timer(lambda: F.group_norm(xn, groups, sc16,
-                                                          bi16, 1e-6)),
-                    bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                    bound_by="bytes")
-        rows["group_norm"].append(row)
+        if kind == "group_norm":
+            rows["group_norm"].append(k6_row(
+                torch, sg, mult, timer, gen, other_form=sg in K6_FORCED,
+                clean=clean))
+    if any(("group_norm", sg) not in sigs for sg in K6_FORCED):
+        raise AssertionError(f"the forward's K6 shapes miss one of "
+                             f"{K6_FORCED}")
+    # and at ragged shapes of no model, in both forms
+    rows["group_norm_ragged"] = [k6_row(torch, sg, 0, timer, gen,
+                                        other_form=True)
+                                 for sg in K6_RAGGED]
     details["ve_kernels"] = rows
 
     # host cost of one launch through each wrapper, at small shapes
@@ -1395,10 +1534,12 @@ def phase_ve_kernels(model_bf16, details):
         flops = sum(r.get("flops", 0) * r["per_forward"] for r in rows[kind])
         row = dict(
             name=kind, route="cuda", source=source, replaces=replaces,
-            max_abs_err=max(v for r in rows[kind] for k, v in r.items()
-                            if k.startswith("err_")),
-            max_rel_err=max(v for r in rows[kind] for k, v in r.items()
-                            if k.startswith("rel_err_")),
+            max_abs_err=max(v for r in rows[kind] + rows.get(
+                kind + "_ragged", []) for k, v in r.items()
+                if k.startswith("err_")),
+            max_rel_err=max(v for r in rows[kind] + rows.get(
+                kind + "_ragged", []) for k, v in r.items()
+                if k.startswith("rel_err_")),
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
             bound_by=("operations" if flops / PEAK_FLOPS["torch.bfloat16"]
                       >= tot["bytes"] / HBM_BYTES_PER_S else "bytes"),
@@ -1412,11 +1553,8 @@ def phase_ve_kernels(model_bf16, details):
             **tot)
     for r in rows["conv3x3_tiled"]:
         print_conv_row("conv3x3_tiled", r)
-    for r in rows["group_norm"]:
-        print(f"  group_norm {r['sig']} x{r['per_forward']}: {r['ms']:.4f} "
-              f"ms, plain {r['plain_ms']:.4f}, library "
-              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
-              f"({r['bound_by']})", flush=True)
+    for r in rows["group_norm"] + rows["group_norm_ragged"]:
+        print_k6_row(r)
     per_fwd = {k: sum(n for (kind, _), n in sigs.items() if kind == k)
                for k in ("conv3x3", "conv3x3_gn", "conv3x3_tiled",
                          "group_norm")}
@@ -1432,6 +1570,12 @@ def phase_ve_kernels(model_bf16, details):
               for k in out},
           k4_tflops=details["ve_conv3x3_tiled_per_forward"]["flops"]
           / details["ve_conv3x3_tiled_per_forward"]["ms"] / 1e9,
+          k6_forms={f: sum(r["per_forward"] for r in rows["group_norm"]
+                           if r["form"] == f) for f in ("onchip", "streamed")},
+          k6_bound_share=details["ve_group_norm_per_forward"]["bound_ms"]
+          / details["ve_group_norm_per_forward"]["ms"],
+          k6_ms_clean_l2=sum(r["ms_clean_l2"] * r["per_forward"]
+                             for r in rows["group_norm"]),
           note="ms: sum over one batch-4 bf16 forward's launches; library: "
                "F.conv2d channels-last with cuDNN, F.group_norm on the NCHW "
                "view (without the extra bias and the SiLU)")

@@ -10,20 +10,51 @@ injected noises, and ``wx``/``we`` are row k of the coefficient matrices
 * :func:`fused_weighted_sum` — both buffers and the final add in one pass
   over the live rows only, by the CUDA kernel ``csrc/weighted_sum.cu`` for a
   CUDA tensor and by :func:`fused_weighted_sum_reference` for a CPU one.
+  :func:`_ws_plan` splits the live rows into groups that threads of one
+  block sum side by side.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _cuda
 
-# natdiff_weighted_sum(wx, we, bufx, bufe, live_x, live_e, m, out, stream)
+# natdiff_weighted_sum(wx, we, bufx, bufe, live_x, live_e, m, split, out,
+# stream)
 _WS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_longlong, ctypes.c_void_p,
-                                         ctypes.c_void_p])
+                                         ctypes.c_longlong, ctypes.c_int,
+                                         ctypes.c_void_p, ctypes.c_void_p])
+
+# constants of csrc/weighted_sum.cu: threads a block; the card's SMs
+_THREADS, _SMS = 256, 132
+SPLITS = (1, 2, 4, 8)
+
+
+@functools.lru_cache(maxsize=256)
+def _ws_plan(m: int, live_x: int, live_e: int) -> dict:
+    """The kernel's launch for ``M = m`` and ``live_x + live_e`` live rows:
+    ``split`` groups of contiguous rows (the x rows, then the eps rows), each
+    summed by ``_THREADS // split`` threads of a block over as many float4
+    columns.  The split doubles while the grid has fewer blocks than the
+    card has SMs and every group keeps at least 4 rows: CIFAR's batch of 64
+    (M = 196,608) takes 1, DiT's one latent (M = 4,096) 8.  Group ``g`` of
+    ``S`` takes rows ``[g L // S, (g + 1) L // S)``.  Pure: the CPU tests
+    walk it."""
+    rows = live_x + live_e
+    m4 = m // 4
+    split = 1
+    while (split < SPLITS[-1] and -(-m4 // (_THREADS // split)) < _SMS
+           and rows >= 8 * split):
+        split *= 2
+    cols = _THREADS // split
+    return dict(split=split, cols=cols, blocks=-(-m4 // cols),
+                groups=[(g * rows // split, (g + 1) * rows // split)
+                        for g in range(split)],
+                smem=16 * (split - 1) * cols + 4 * rows)
 
 
 def weighted_sum(w: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
@@ -75,15 +106,24 @@ def fused_weighted_sum(wx, we, bufx, bufe, live_x: int,
     if m == 0 or m % 4 or any(t.data_ptr() % 16 for t in (bufx, bufe)):
         raise ValueError(f"the weighted-sum kernel needs M % 4 == 0 and "
                          f"16-byte aligned buffers (M={m})")
-    if live_x + live_e > 12288:               # 48 KB of static shared memory
+    if live_x + live_e > 12288:               # 48 KB of the weight buffer
         raise ValueError(f"{live_x + live_e} live rows exceed the kernel's "
                          f"weight buffer")
+    return _launch(wx, we, bufx, bufe, live_x, live_e,
+                   _ws_plan(m, live_x, live_e)["split"])
+
+
+def _launch(wx, we, bufx, bufe, live_x: int, live_e: int,
+            split: int) -> torch.Tensor:
+    """One launch of the kernel with ``split`` row groups (checked
+    arguments; the checks also time the splits the plan does not pick)."""
+    m = bufx.shape[1]
     out = torch.empty(m, dtype=torch.float32, device=bufx.device)
     fn = _cuda.entry("weighted_sum", "natdiff_weighted_sum",
                      _WS_ARGTYPES)
     with _cuda.on_device(bufx):
         err = fn(wx.data_ptr(), we.data_ptr(), bufx.data_ptr(),
-                 bufe.data_ptr(), live_x, live_e, m, out.data_ptr(),
+                 bufe.data_ptr(), live_x, live_e, m, split, out.data_ptr(),
                  _cuda.stream_ptr(bufx))
     _cuda.check("weighted_sum", err, "weighted_sum")
     fused_weighted_sum.launches += 1
