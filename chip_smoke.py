@@ -25,6 +25,19 @@ printed as one line with its numbers and seconds as it ends:
            in bf16 through ``apps.cifar10_ni.make_sampler``, launch counts
            read around it, img/s, and the first 2 samples against a CPU
            float32 run fed the same noises.
+  bench    the port bench, ``apps.bench``, on one ``Bench`` at its
+           defaults (1024 images a dispatch in 16 replays of a CUDA graph
+           of one 64-image 10-step run): the wrappers' launch counts around
+           its build and run (its eager warm-up and its capture); its timed
+           dispatches through ``bench.measure``, then one profiled dispatch
+           of 2 replays (the card's busy share, and K1, K2, K3 and K6
+           counted in the trace); 2 chunks by the eager loop, timed as the
+           control; the graph's capture time and pool size; and with random
+           weights one chunk graphed against eager with the same init and
+           noises, beside two eager runs as the control and a planted
+           fault (one resblock conv zeroed in place) that must exceed the
+           limit.  The bench's FLOP count runs on the CPU during the build
+           phase.
   dit_kernels   kernels K9 (flash attention) and K7 (W8A16 matmul) against
            their plain versions at DiT-XL/2's shapes (and K9 at an
            unaligned t = 250, K7 at ragged M, N = 128 and K = 8192), timed
@@ -60,7 +73,8 @@ printed as one line with its numbers and seconds as it ends:
            controls, and the kernels in f32 against the same run.
   tool_kernels  kernel K10 (splash attention, with its logsumexp) against
            its plain version at SD3's three joint lengths, ``mha_joint``
-           against one full softmax per row, kernel K8 (fused leaky ReLU)
+           against one full softmax per row and profiled in a fresh child
+           process, which must list K10; kernel K8 (fused leaky ReLU)
            bit for bit against its plain version, and K9 at SD3's length;
            each timed as in ``kernels``, K9 and K10 at each length beside
            SDPA's flash backend.  K8's path: its wrapper at the level-0
@@ -79,6 +93,7 @@ JSON and ``{"ok": true, "device": {...}}``.  Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import copy
 import json
@@ -117,6 +132,30 @@ SLICE_TOL = 2e-2
 # the same run in f32 on the card: f32 forward differences (~1e-6) grow by
 # 1/alpha (~160 at t=999) in eps -> x0; relative L2
 SLICE_F32_TOL = 1e-3
+# the port bench at its defaults: 1024 images a dispatch, 16 replays; its
+# eager control over 2 chunks (128 images), and one dispatch of 2 replays
+# profiled: tracing all 16 replays made the phase take 96.5 s on an H100,
+# most of it the profiler's processing of their kernels
+BENCH_TOTAL = 1024
+BENCH_CHUNKS_EAGER = 2
+BENCH_CHUNKS_TRACED = 2
+# one 64-image chunk of the bench with random weights (randomize_), the
+# CUDA graph's replay against the eager loop with the same init and noises,
+# relative L2: K3's channel sums and K6 add by f32 atomics in any order, so
+# two eager runs of the same inputs differ in last f32 bits, which flip bf16
+# roundings, and after 10 steps of random weights any such flip has spread
+# to the floor of bf16 itself: on an NVIDIA H100 80GB HBM3 two eager runs
+# read 2.95e-3, two replays 2.96e-3, the graph against eager 2.98e-3 (on
+# the CPU a 1.01 scale of one conv's weights moved 4-step samples 3e-3);
+# the limit is 3.4x that control.  A stale input, a wrong noise or a replay
+# of the wrong buffers moves the samples by O(1); the phase zeroes the
+# first resblock's Conv_1 (BENCH_FAULT_CONV, a K3 at 32 x 32 x 128) in
+# place, which moved a replay 0.150 there (5.0e-8 at NCSN++'s own init,
+# whose zeroed Conv_1s leave eps ~1e-5 of the sample), and checks that it
+# passes the limit.  A fault in one deep 4 x 4 resblock (3e-3 to 4e-3 on
+# the CPU) is inside the bf16 floor and this check cannot see it
+BENCH_GRAPH_TOL = 1e-2
+BENCH_FAULT_CONV = "layers.m3.Conv_1"
 # images per second of the CIFAR slice before this script's phases ran K6
 # on it (PERF.md section 6: 69.05 on an NVIDIA H100 80GB HBM3 at 700 W)
 CIFAR_IMG_PER_S_BEFORE_K6 = 69.05
@@ -899,6 +938,181 @@ def phase_slice(model_f32, n_plain, n_gn, n_k6, smi):
           control_time_1pct_off_rel_l2=ctl_fault,
           sample_abs_max=float(out.abs().max()))
     return launches, BATCH / wall
+
+
+def bench_counters():
+    from naturaldiffusion_tpu_torch.ops import conv3x3 as C
+    from naturaldiffusion_tpu_torch.ops import group_norm as G
+    from naturaldiffusion_tpu_torch.ops import weighted_sum as WS
+    return {"fused_weighted_sum": WS.fused_weighted_sum,
+            "conv3x3": C.conv3x3, "conv3x3_gn": C.conv3x3_gn,
+            "conv3x3_tiled": C.conv3x3_tiled,
+            "fused_group_norm": G.fused_group_norm}
+
+
+def trace_launches(logdir):
+    """Device launches of K1, K2, K3 and K6 in the newest ``torch.profiler``
+    trace under ``logdir``, by kernel name.  K2 is the tensor-core conv's
+    instance without prologue, skip or sums (K4 runs the same instance in
+    bf16; the CIFAR path has no K4), K3 every other instance; K6 is one
+    ``gn_*`` kernel a call in its on-chip form, the CIFAR form."""
+    from naturaldiffusion_tpu_torch.utils import trace_summary
+    n = {"fused_weighted_sum": 0, "conv3x3": 0, "conv3x3_gn": 0,
+         "fused_group_norm": 0}
+    for e in trace_summary.load_events(logdir):
+        name = e.get("name", "")
+        if "weighted_sum_kernel" in name:
+            n["fused_weighted_sum"] += 1
+        elif "conv3x3_tc_kernel<" in name:
+            args = name.split("conv3x3_tc_kernel<", 1)[1].split(">", 1)[0]
+            flags = [f.strip() for f in args.split(",")[2:5]]
+            n["conv3x3" if flags == ["false"] * 3 else "conv3x3_gn"] += 1
+        elif "gn_onchip_kernel" in name or "gn_grid_kernel" in name:
+            n["fused_group_norm"] += 1
+    return n
+
+
+def bench_eager_s(b, chunks, seed):
+    """Wall seconds of ``chunks`` micro-batches of the bench by its eager
+    loop, ending in one host read of their sum."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t = time.perf_counter()
+    total = torch.zeros((), device="cuda")
+    for c in range(chunks):
+        total += b.eager_chunk(c, gen).sum()
+    if not math.isfinite(float(total)):
+        raise AssertionError("bench: non-finite eager checksum")
+    return time.perf_counter() - t
+
+
+def phase_bench(n_plain, n_gn, n_k6, flops):
+    """The port bench on one ``Bench`` at its defaults: the launch counts
+    of its warm-up and capture, its timed graphed dispatches, one profiled
+    dispatch of ``BENCH_CHUNKS_TRACED`` replays (its busy share and the
+    device launches of each kernel in the trace), eager chunks timed as the
+    control, and one chunk graphed against eager with random weights.
+    ``flops``: the bench's ``--flops-only`` count, taken while the kernels
+    built.  Returns the bench's launches, the trace's and its records."""
+    import contextlib as cl
+    import io
+    import shutil
+    import tempfile
+    import torch
+    from naturaldiffusion_tpu_torch.apps import bench as B
+
+    t0 = time.perf_counter()
+    counters = bench_counters()
+    per_chunk = {"fused_weighted_sum": STEPS, "conv3x3": STEPS * n_plain,
+                 "conv3x3_gn": STEPS * n_gn, "conv3x3_tiled": 0,
+                 "fused_group_norm": STEPS * n_k6}
+    steps_s = {}
+
+    def lap(name):
+        steps_s[name] = time.perf_counter() - t0 - sum(steps_s.values())
+
+    # the main path: zeroed before the bench is built, read after its run;
+    # the wrappers count its eager warm-up and its capture, once each (a
+    # replay calls no wrapper)
+    zero_counts(counters)
+    b = B.Bench(micro=BATCH, total=BENCH_TOTAL, steps=STEPS, device="cuda",
+                graph=True)
+    b.dispatch(2)                                   # warm dispatch
+    logdir = tempfile.mkdtemp(prefix="natdiff_bench_")
+    buf = io.StringIO()
+    try:
+        with cl.redirect_stdout(buf):
+            graphed = B.measure(b, flops, trace_dir=logdir,
+                                trace_chunks=BENCH_CHUNKS_TRACED)
+        traced = trace_launches(logdir)
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    launches = read_counts(counters)
+    lap("graphed_and_traced")
+    if launches != {k: 2 * v for k, v in per_chunk.items()}:
+        raise AssertionError(f"bench launches {launches}, want twice "
+                             f"{per_chunk}")
+    want_traced = {k: BENCH_CHUNKS_TRACED * v for k, v in per_chunk.items()
+                   if k != "conv3x3_tiled"}
+    if traced != want_traced:
+        raise AssertionError(f"bench: the traced dispatch's device launches "
+                             f"{traced} != {want_traced}")
+    if not (graphed["graph"] and graphed["busy"] is not None
+            and graphed["total_batch"] == BENCH_TOTAL
+            and graphed["micro_batch"] == BATCH and graphed["steps"] == STEPS
+            and graphed["value"] > 0):
+        raise AssertionError(f"bench line: {graphed}")
+
+    # the eager control on the same bench, timed as a dispatch is
+    bench_eager_s(b, 1, 5)                          # warm-up
+    eager_s = [bench_eager_s(b, BENCH_CHUNKS_EAGER, 6 + i) for i in range(3)]
+    eager_ips = BENCH_CHUNKS_EAGER * BATCH / statistics.median(eager_s)
+    lap("eager")
+
+    def chunk(graph):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+        out = (b.chunk if graph else b.eager_chunk)(1, gen).clone()
+        torch.cuda.synchronize()
+        return out
+
+    def planted_fault():
+        """``BENCH_FAULT_CONV`` zeroed in place: the rel L2 it moves a
+        replay by, from the eager run before it; the weights restored."""
+        w = dict(b.net.named_modules())[BENCH_FAULT_CONV].kernel
+        saved = w.detach().clone()
+        before = chunk(False)
+        with torch.no_grad():
+            w.zero_()
+        moved = rel_l2(chunk(True), before)
+        with torch.no_grad():
+            w.copy_(saved)
+        return moved, before
+
+    # NCSN++'s own init (the bench's weights) zeroes every Conv_1 and the
+    # head conv, so a fault in a residual branch barely reaches the samples
+    fault_at_init, _ = planted_fault()
+    randomize_(b.net, SEED + 5)       # in place: the graph reads the same
+    eager1, eager2 = chunk(False), chunk(False)
+    replay1, replay2 = chunk(True), chunk(True)
+    control = rel_l2(eager2, eager1)
+    err = rel_l2(replay1, eager1)
+    fault, before = planted_fault()
+    restored = rel_l2(chunk(True), before)
+    lap("graph_vs_eager")
+    print(f"  bench graph vs eager, random weights: rel L2 {err:.3e}, two "
+          f"eager runs {control:.3e}, replay vs replay "
+          f"{rel_l2(replay2, replay1):.3e}; {BENCH_FAULT_CONV} zeroed moves "
+          f"a replay {fault:.3e} (at the seed init {fault_at_init:.3e}), "
+          f"restored {restored:.3e}; limit {BENCH_GRAPH_TOL:g}", flush=True)
+    if not (torch.isfinite(replay1).all() and err <= BENCH_GRAPH_TOL
+            and restored <= BENCH_GRAPH_TOL and fault > BENCH_GRAPH_TOL):
+        raise AssertionError(f"bench: graph vs eager rel L2 {err:.3e}, "
+                             f"restored {restored:.3e} (limit "
+                             f"{BENCH_GRAPH_TOL:g}), planted fault "
+                             f"{fault:.3e} must exceed it")
+    eager = dict(value=eager_ips, images=BENCH_CHUNKS_EAGER * BATCH,
+                 dispatch_s=eager_s)
+    print(f"  bench graphed: {graphed['value']} img/s, eager "
+          f"({BENCH_CHUNKS_EAGER * BATCH} images): {eager_ips:.2f} img/s; "
+          f"{graphed['card']}", flush=True)
+    print(f"  bench graph: capture {graphed['capture_s']:.3f} s, pool "
+          f"{graphed['graph_pool_bytes'] / 2 ** 20:.1f} MiB; busy share of "
+          f"a profiled dispatch of {BENCH_CHUNKS_TRACED} replays "
+          f"{graphed['busy']}", flush=True)
+    for ln in buf.getvalue().splitlines():
+        print("  " + ln, flush=True)
+    phase("bench", t0, graphed=graphed, eager=eager, launches=launches,
+          traced_launches=traced, rel_l2_graph_vs_eager=err,
+          control_eager_vs_eager=control, tol=BENCH_GRAPH_TOL,
+          replays_equal=bool(torch.equal(replay1, replay2)),
+          rel_l2_replay_vs_replay=rel_l2(replay2, replay1),
+          planted_fault=dict(conv=BENCH_FAULT_CONV, rel_l2=fault,
+                             rel_l2_at_seed_init=fault_at_init,
+                             restored_rel_l2=restored),
+          steps_s=steps_s)
+    del b
+    torch.cuda.empty_cache()
+    return launches, traced, dict(graphed=graphed, eager=eager)
 
 
 # ------------------------------------------------------------------ DiT path
@@ -1837,20 +2051,31 @@ def phase_tool_kernels(details):
     jt = joint["timing_bf16"]
     jt["faster"] = min(("mha_joint", "mha_flash", "mha_splash"),
                        key=lambda n: jt[f"{n}_ms"])
-    # where mha_joint's time goes: device time by kernel of one call
+    # where mha_joint's time goes: device time by kernel of one call, in a
+    # fresh process (see profile_joint_in_child), which must list K10
+    prof = profile_joint_in_child()
+    jt["profiled_device_ms"] = prof["device_ms"]
+    jt["profiled_kernels"] = prof["kernels"]
+    jt["profiled_top"] = prof["top"]
+    jt["profiled_k10_ms"] = prof["k10_ms"]
+    if not prof["k10_ms"]:
+        raise AssertionError(f"the profile of mha_joint lists no K10 "
+                             f"launch: {prof['top']}")
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as here:
         A.mha_joint(q, k, v, split=SD3_LAT)
         torch.cuda.synchronize()
-    kern = sorted((e for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")
-                   and e.self_device_time_total > 0),
-                  key=lambda e: -e.self_device_time_total)
-    jt["profiled_device_ms"] = sum(e.self_device_time_total
-                                   for e in kern) / 1e3
-    jt["profiled_top"] = [(e.key[:60], e.count,
-                           e.self_device_time_total / 1e3) for e in kern[:8]]
+    jt["in_process_profile"] = kernel_summary(sorted(
+        (e for e in here.key_averages()
+         if str(e.device_type).endswith("CUDA")
+         and e.self_device_time_total > 0),
+        key=lambda e: -e.self_device_time_total))
+    print(f"  mha_joint profiled in a fresh process: {prof['kernels']} "
+          f"kernels, {prof['device_ms']:.3f} ms, K10 {prof['k10_ms']:.3f} "
+          f"ms; in this process: {jt['in_process_profile']['kernels']} "
+          f"kernels, {jt['in_process_profile']['device_ms']:.3f} ms, K10 "
+          f"{jt['in_process_profile']['k10_ms']:.3f} ms", flush=True)
 
     # K10 and K9 timed at SD3's length in bf16 (q, k, v from above)
     qs = A.prescale(q, scale)
@@ -1992,6 +2217,60 @@ def phase_tool_kernels(details):
     return out, k8_count, k9_long
 
 
+# One mha_joint call at SD3's length in bf16, profiled, its device time by
+# kernel printed as JSON.  torch.profiler in torch 2.11 + CUDA 12.8 loses
+# device records at the start of a short window late in a long process,
+# whichever library launched the kernels: in this script's process, some
+# 200 s old, the same profile lists fewer kernels and no K10 (the first
+# launch), which a fresh process lists; so the call is profiled in a fresh
+# process, and the in-process profile is kept beside it for the record
+_JOINT_PROFILE = f"""
+import json, math, torch
+from torch.profiler import ProfilerActivity, profile
+from chip_smoke import kernel_summary
+from naturaldiffusion_tpu_torch.ops import attention as A
+gen = torch.Generator(device="cuda").manual_seed({SEED} + 32)
+q, k, v = (torch.randn(({SD3_B}, {SD3_H}, {SD3_LAT + SD3_CTX}, {SD3_D}),
+                       generator=gen, device="cuda").bfloat16()
+           for _ in range(3))
+A.mha_joint(q, k, v, split={SD3_LAT})
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    A.mha_joint(q, k, v, split={SD3_LAT})
+    torch.cuda.synchronize()
+kern = sorted((e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and e.self_device_time_total > 0),
+              key=lambda e: -e.self_device_time_total)
+print(json.dumps(kernel_summary(kern)))
+"""
+
+
+def kernel_summary(kern):
+    """Device ms, kernel count, K10's ms and the top 8 of a profile's
+    device events (``key_averages`` rows, longest first)."""
+    k10 = [e for e in kern if "flash_ring_kernel<64, true" in e.key]
+    return dict(
+        device_ms=sum(e.self_device_time_total for e in kern) / 1e3,
+        kernels=sum(e.count for e in kern),
+        k10_ms=sum(e.self_device_time_total for e in k10) / 1e3,
+        top=[(e.key[:60], e.count, e.self_device_time_total / 1e3)
+             for e in kern[:8]])
+
+
+def profile_joint_in_child():
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    res = subprocess.run([sys.executable, "-c", _JOINT_PROFILE], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=180)
+    if res.returncode != 0:
+        raise AssertionError(f"mha_joint profile: {res.stderr[-2000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
 def phase_attention_bench():
     """``apps.bench_attention`` at its defaults, the path of K10; the K9
     and K10 counters read around it."""
@@ -2093,7 +2372,13 @@ def main(argv=None) -> int:
         CIFAR10_DDPMPP_CONTINUOUS, NCSNpp)
 
     smi = phase_env()
-    phase_build()
+    # the port bench's FLOPs, counted on the CPU while the kernels build
+    from naturaldiffusion_tpu_torch.utils.flops import flops_via_cpu_subprocess
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        counting = pool.submit(flops_via_cpu_subprocess,
+                               "naturaldiffusion_tpu_torch.apps.bench", [])
+        phase_build()
+        bench_flops = int(counting.result())
     model = randomize_(NCSNpp(CIFAR10_DDPMPP_CONTINUOUS, device="cpu"),
                        SEED).eval()
     details = {}
@@ -2103,6 +2388,8 @@ def main(argv=None) -> int:
     phase_forward(model)
     launches, ips = phase_slice(model, n_plain, n_gn, n_k6, smi)
     del model
+    bench_launches, bench_traced, bench_lines = phase_bench(
+        n_plain, n_gn, n_k6, bench_flops)
 
     from naturaldiffusion_tpu_torch.models.dit import DIT_CONFIGS, DiT
     dit32 = randomize_dit_(DiT(DIT_CONFIGS[DIT_MODEL], device="cuda"),
@@ -2132,6 +2419,7 @@ def main(argv=None) -> int:
                 "shape", "ms", "plain_ms", "library_ms", "bound_ms")}
 
     by_path = {"cifar_slice": launches,
+               "bench": bench_launches,
                "dit_slice": dit_runs["float"]["launches"],
                "dit_slice_w8": dit_runs["w8"]["launches"],
                "ve_slice": ve_launches,
@@ -2155,12 +2443,16 @@ def main(argv=None) -> int:
         k["launches"] = by_path[path][fn]
         k["launches_by_path"] = {p: c[fn] for p, c in by_path.items()
                                  if c.get(fn)}
+        if fn in bench_traced:
+            k["bench_trace_launches"] = dict(
+                replays=BENCH_CHUNKS_TRACED, launches=bench_traced[fn])
         if not k["launches"]:
             raise AssertionError(f"{k['name']} was not launched on {path}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path")
     extras = ("also_replaces", "served_by", "head_dims_checked",
+              "bench_trace_launches",
               "lse_max_abs_err", "sd3_length", "note")
     kernels = [dict({k: kern[k] for k in keys},
                     **{k: kern[k] for k in extras if k in kern})
@@ -2168,6 +2460,7 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(dict(card=smi, img_per_s=ips, dit=dit_runs,
+                           bench=bench_lines,
                            attention_bench=attn_rows, bench_dit_toy=dit_toy,
                            bench_conv=conv_row, kernels=kernels,
                            details=details), fh, indent=1)

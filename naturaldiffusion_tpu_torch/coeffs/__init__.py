@@ -1,6 +1,6 @@
 """Coefficient matrices: every sampler as data for the NI engine."""
 
 from .matrix import CoeffMatrix
-from .registry import derive
+from .registry import DERIVERS, derive
 
-__all__ = ["CoeffMatrix", "derive"]
+__all__ = ["CoeffMatrix", "DERIVERS", "derive"]

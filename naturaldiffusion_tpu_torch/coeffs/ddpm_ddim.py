@@ -1,10 +1,23 @@
-"""DDPM-ancestral and DDIM coefficient matrices (affine replay).
+"""DDPM-ancestral and DDIM coefficient matrices.
 
-The two derivations of ``naturaldiffusion_tpu/coeffs/ddpm_ddim.py`` that the
-port's first slice needs, copied so the port never imports the JAX package
-(reference: ``ddpm_sympy_analyze_coeff``, ``src/AnalyzeDDPMDDIM.py:177-247``,
-and ``ddim_sympy_analyze_coeff:343-405``).  The closed-form cross-checks
-stay in the JAX package; the port's tests hold these matrices against it.
+Copy of ``naturaldiffusion_tpu/coeffs/ddpm_ddim.py`` (numpy only), kept here so the
+port never imports the JAX package.
+
+Two independent derivations, cross-checking each other exactly as the
+reference does (``src/AnalyzeDDPMDDIM.py:446-453``):
+
+* ``derive_ddpm`` / ``derive_ddim`` — affine replay of the sampler recursion
+  (replaces the reference SymPy path ``ddpm_sympy_analyze_coeff``,
+  ``src/AnalyzeDDPMDDIM.py:177-247`` and ``ddim_sympy_analyze_coeff:343-405``).
+  Regression oracle: ``results/ddpm/ddpm_sympy_*.npz``,
+  ``results/ddim/ddim_sympy_*.npz``.
+
+* ``derive_ddpm_analytic`` / ``derive_ddim_analytic`` — closed-form product
+  recursion (reference ``ddpm_analyze_coeff:126-174`` /
+  ``ddim_analyze_coeff:297-340``).  Regression oracle:
+  ``results/ddpm/ddpm_*.npz``, ``results/ddim/ddim_*.npz``.  (These store a
+  slightly different ``node`` first row — the analytic path hard-codes
+  ``[999, 0, 1]`` while the affine path records the true marginal at t=999.)
 """
 
 from __future__ import annotations
@@ -80,3 +93,57 @@ def derive_ddim(num_step: int) -> CoeffMatrix:
         tr.new_eps(nd.key)
 
     return assemble(tr, nodes)
+
+
+# ---------------------------------------------------------------------------
+# Closed-form cross-checks (product recursion, no tracker)
+# ---------------------------------------------------------------------------
+
+
+def _analytic_node_tail(sch: DiscreteVP, num_step: int) -> np.ndarray:
+    """node rows for the analytic path: hard-coded start row [999, 0, 1] then
+    per-row true marginals (reference ``src/AnalyzeDDPMDDIM.py:154-167``)."""
+    node = np.zeros((num_step + 1, 3))
+    node[0] = (999.0, 0.0, 1.0)
+    for start in range(1, num_step):
+        k = num_step - start
+        ab = sch.alphas_bar[start - 1]
+        node[k] = (float(sch.timesteps[start - 1]), np.sqrt(ab), np.sqrt(1.0 - ab))
+    # final 'denoise to zero' row
+    node[num_step] = (-1.0, 1.0, 0.0)
+    return node
+
+
+def derive_ddpm_analytic(num_step: int) -> CoeffMatrix:
+    sch = DiscreteVP.create(num_step)
+    c_xt, c_x0, std = sch.ddpm_coeff_xt, sch.ddpm_coeff_x0, sch.posterior_std
+
+    x0 = np.zeros((num_step, num_step))
+    eps = np.zeros((num_step, num_step + 1))
+    end = num_step
+    for start in range(end):
+        row = end - start - 1
+        # initial-noise column, then injected noises newest-step-first
+        es = [np.prod(c_xt[start:end])]
+        es += [std[i] * np.prod(c_xt[start:i]) for i in range(end - 1, start - 1, -1)]
+        eps[row, : 1 + end - start] = es
+        xs = [c_x0[i] * np.prod(c_xt[start:i]) for i in range(end - 1, start - 1, -1)]
+        x0[row, : end - start] = xs
+
+    return CoeffMatrix(x0=x0, eps=eps, node=_analytic_node_tail(sch, num_step))
+
+
+def derive_ddim_analytic(num_step: int) -> CoeffMatrix:
+    sch = DiscreteVP.create(num_step)
+    c_xt, c_x0 = sch.ddim_coeff_xt, sch.ddim_coeff_x0
+
+    x0 = np.zeros((num_step, num_step))
+    eps = np.zeros((num_step, num_step + 1))
+    end = num_step
+    for start in range(end):
+        row = end - start - 1
+        eps[row, 0] = np.prod(c_xt[start:end])
+        xs = [c_x0[i] * np.prod(c_xt[start:i]) for i in range(end - 1, start - 1, -1)]
+        x0[row, : end - start] = xs
+
+    return CoeffMatrix(x0=x0, eps=eps, node=_analytic_node_tail(sch, num_step))

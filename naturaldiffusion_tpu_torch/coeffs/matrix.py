@@ -47,6 +47,12 @@ class CoeffMatrix:
         """True if noise is only injected at the start (e.g. DDIM, ODE)."""
         return bool(np.all(self.eps[:, 1:] == 0.0))
 
+    def marginal_errors(self) -> tuple[np.ndarray, np.ndarray]:
+        """(|row-sum(x0) - alpha|, |row-norm(eps) - sigma|) per step."""
+        sig_err = np.abs(self.x0.sum(axis=1) - self.node[1:, 1])
+        noi_err = np.abs(np.linalg.norm(self.eps, axis=1) - self.node[1:, 2])
+        return sig_err, noi_err
+
     def check_finite(self, context: str = "") -> "CoeffMatrix":
         """NaN guard (SURVEY §5 sanitizer row): the coefficient derivers run
         log/sqrt/arccos chains in fp64 where a silently poisoned schedule

@@ -3,9 +3,10 @@
 Every sampler is data: a :class:`CoeffMatrix` whose rows weigh the past
 predicted x0's and the noises.  The JAX package runs the steps as one jitted
 ``lax.scan`` over a carried buffer; here one Python loop fills preallocated
-``[n, M]`` float32 buffers in place, and each step's dual weighted sum is the
+``[n, M]`` buffers in place, and each step's dual weighted sum is the
 fused kernel (``ops.weighted_sum.fused_weighted_sum``) on a CUDA tensor, its
-plain version on a CPU one.  All
+plain version on a CPU one.  The buffers hold ``accum_dtype``: float32, or
+float64 on the CPU only (the kernel sums in float32).  All
 injected noises are drawn up front (column 0 of the eps matrix is the initial
 noise), so the loop itself draws no random numbers.
 """
@@ -26,7 +27,7 @@ from .predictions import to_x0
 
 @dataclasses.dataclass(frozen=True)
 class NISchedule:
-    """A CoeffMatrix as float32 tensors on one device."""
+    """A CoeffMatrix as float32 (or ``dtype``) tensors on one device."""
 
     x0: torch.Tensor        # [n, n] lower-triangular
     eps: torch.Tensor       # [n, n+1]
@@ -34,13 +35,14 @@ class NISchedule:
     deterministic: bool = False   # True if eps[:, 1:] == 0
 
     @classmethod
-    def from_matrix(cls, m: CoeffMatrix, device="cuda") -> "NISchedule":
+    def from_matrix(cls, m: CoeffMatrix, device="cuda",
+                    dtype=torch.float32) -> "NISchedule":
         dev = resolve_device(device)
 
-        def f32(a):
-            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        def cast(a):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-        return cls(x0=f32(m.x0), eps=f32(m.eps), node=f32(m.node),
+        return cls(x0=cast(m.x0), eps=cast(m.eps), node=cast(m.node),
                    deterministic=m.is_deterministic)
 
     @property
@@ -57,9 +59,11 @@ def natural_inference(
     generator: torch.Generator | None = None,
     prediction_type: str = "x0",
     model_dtype: torch.dtype | None = None,
+    accum_dtype: torch.dtype = torch.float32,
     step_inputs=None,
 ) -> torch.Tensor:
-    """Run Natural Inference; returns the final state ``z`` in float32.
+    """Run Natural Inference; returns the final state ``z`` in
+    ``accum_dtype``.
 
     ``denoise_fn(x, t) -> pred``: the batched network, called with x in
     ``model_dtype`` (default: init_noise's) and the node time ``t`` as a
@@ -72,6 +76,8 @@ def natural_inference(
     :func:`..models.dit.dit_schedule_mods`).  When given, the model is
     called as ``denoise_fn(x, t, aux_k)`` with step k's slice, as the JAX
     engine does.
+    ``accum_dtype``: float32, or float64 for parity runs on the CPU; a
+    CUDA tensor with float64 raises, as kernel K1 sums in float32.
 
     Reference loop shape: ``src/ValidateNaturalInference.py:345-366``.
     """
@@ -79,10 +85,15 @@ def natural_inference(
     shape = tuple(init_noise.shape)
     dev = init_noise.device
     model_dtype = model_dtype or init_noise.dtype
-    f32 = torch.float32
+    acc = accum_dtype
+    if acc not in (torch.float32, torch.float64):
+        raise ValueError(f"accum_dtype must be float32 or float64, got {acc}")
+    if acc == torch.float64 and dev.type != "cpu":
+        raise ValueError("accum_dtype=float64 runs on the CPU only: kernel "
+                         "K1 sums in float32")
     m = init_noise.numel()
 
-    z = init_noise.to(f32).reshape(-1)     # x at node 0 IS the prior sample
+    z = init_noise.to(acc).reshape(-1)     # x at node 0 IS the prior sample
     if sched.deterministic:
         bufe = z.reshape(1, m).clone()
     else:
@@ -91,17 +102,17 @@ def natural_inference(
                 raise ValueError("stochastic schedule needs `noises` or "
                                  "`generator`")
             noises = torch.randn((n,) + shape, generator=generator,
-                                 device=dev, dtype=f32)
+                                 device=dev, dtype=acc)
         if tuple(noises.shape) != (n,) + shape:
             raise ValueError(f"noises {tuple(noises.shape)} != "
                              f"{(n,) + shape}")
         bufe = torch.cat([z.reshape(1, m),
-                          noises.to(device=dev, dtype=f32).reshape(n, m)])
+                          noises.to(device=dev, dtype=acc).reshape(n, m)])
     eps_cols = bufe.shape[0]
-    wx = sched.x0.contiguous()
-    we = sched.eps[:, :eps_cols].contiguous()
+    wx = sched.x0.to(acc).contiguous()
+    we = sched.eps[:, :eps_cols].to(acc).contiguous()
     # rows at and past the live count k+1 are never read, so no zero fill
-    bufx = torch.empty((n, m), dtype=f32, device=dev)
+    bufx = torch.empty((n, m), dtype=acc, device=dev)
 
     for k in range(n):
         t, alpha, sigma = sched.node[k]
@@ -111,11 +122,25 @@ def natural_inference(
         else:
             pred = denoise_fn(z_img.to(model_dtype), t,
                               _at_step(step_inputs, k))
-        x0 = to_x0(pred, z_img, alpha, sigma, prediction_type)
+        x0 = to_x0(pred, z_img, alpha, sigma, prediction_type,
+                   accum_dtype=acc)
         bufx[k] = x0.reshape(-1)       # in place: row k of the x0 buffer
         z = fused_weighted_sum(wx[k], we[k], bufx, bufe, k + 1,
                                min(eps_cols, k + 2))
     return z.reshape(shape)
+
+
+def natural_inference_checked(denoise_fn, sched: NISchedule, init_noise,
+                              **kwargs) -> torch.Tensor:
+    """NaN-guarded NI: :func:`natural_inference` (same arguments), then one
+    check on the host after the loop.  A poisoned schedule or a diverging
+    model raises ``FloatingPointError`` instead of emitting non-finite
+    samples (JAX runs the scan under ``checkify`` and throws)."""
+    out = natural_inference(denoise_fn, sched, init_noise, **kwargs)
+    if not bool(torch.isfinite(out).all()):
+        raise FloatingPointError("natural_inference produced non-finite "
+                                 "output")
+    return out
 
 
 def _at_step(tree, k: int):
@@ -135,7 +160,9 @@ def natural_inference_reference(
     *, noises: np.ndarray | None = None, prediction_type: str = "x0",
 ) -> np.ndarray:
     """Plain NumPy float64 NI loop, structurally identical to the reference
-    (``src/ValidateNaturalInference.py:345-366``): the engine's oracle."""
+    (``src/ValidateNaturalInference.py:345-366``): the engine's oracle.
+    A stochastic matrix without ``noises`` draws step k's noise from
+    ``np.random.default_rng(1000 + k)``, as the JAX package's does."""
     n = matrix.num_step
     seq_eps = [np.asarray(init_noise, np.float64)]
     seq_x0: list[np.ndarray] = []
@@ -153,9 +180,11 @@ def natural_inference_reference(
             raise ValueError(prediction_type)
         seq_x0.append(x0)
         if not matrix.is_deterministic:
-            if noises is None:
-                raise ValueError("stochastic schedule needs `noises`")
-            seq_eps.append(np.asarray(noises[k], np.float64))
+            if noises is not None:
+                seq_eps.append(np.asarray(noises[k], np.float64))
+            else:
+                seq_eps.append(np.random.default_rng(1000 + k)
+                               .standard_normal(z.shape))
         next_x0 = sum(matrix.x0[k, j] * seq_x0[j] for j in range(k + 1))
         next_eps = sum(matrix.eps[k, j] * seq_eps[j]
                        for j in range(min(len(seq_eps), k + 2)))

@@ -58,9 +58,11 @@ def _ws_plan(m: int, live_x: int, live_e: int) -> dict:
 
 
 def weighted_sum(w: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
-    """``sum_j w[j] * buf[j]`` in float32.  ``w``: [n]; ``buf``: [n, ...]."""
-    flat = buf.reshape(buf.shape[0], -1).to(torch.float32)
-    return (w.to(torch.float32).reshape(1, -1) @ flat).reshape(buf.shape[1:])
+    """``sum_j w[j] * buf[j]`` in float32 (float64 for a float64 ``buf``,
+    the CPU-only parity runs).  ``w``: [n]; ``buf``: [n, ...]."""
+    acc = torch.promote_types(buf.dtype, torch.float32)
+    flat = buf.reshape(buf.shape[0], -1).to(acc)
+    return (w.to(acc).reshape(1, -1) @ flat).reshape(buf.shape[1:])
 
 
 def fused_weighted_sum_reference(wx, we, bufx, bufe, live_x: int,

@@ -93,6 +93,14 @@ def summarize(logdir: str):
     return sum(fam.values()), dict(fam)
 
 
+def print_table(total: float, fam: dict, top: int = 15) -> None:
+    """The device total and the ``top`` families by time, with shares."""
+    print(f"device total: {total / 1e3:.3f} ms")
+    for name, us in sorted(fam.items(), key=lambda kv: -kv[1])[:top]:
+        share = us / total * 100 if total else 0.0
+        print(f"{us / 1e3:10.3f} ms  {share:5.1f}%  {name}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("logdir")
@@ -105,10 +113,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     total, fam = summarize(args.logdir)
-    print(f"device total: {total / 1e3:.3f} ms")
-    for name, us in sorted(fam.items(), key=lambda kv: -kv[1])[:args.top]:
-        share = us / total * 100 if total else 0.0
-        print(f"{us / 1e3:10.3f} ms  {share:5.1f}%  {name}")
+    print_table(total, fam, args.top)
     if args.family:
         us = fam.get(args.family, 0)
         if us and args.bytes:

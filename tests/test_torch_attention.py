@@ -13,6 +13,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from naturaldiffusion_tpu.ops.attention import mha as jax_mha
 from naturaldiffusion_tpu_torch.ops import attention as A
+import torch_port_util  # noqa: F401  binds torch's CPU math first
 
 torch.set_num_threads(2)
 

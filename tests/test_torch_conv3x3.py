@@ -11,6 +11,7 @@ import torch
 from naturaldiffusion_tpu.ops.conv3x3 import conv3x3_gn_pallas, conv3x3_xla
 from naturaldiffusion_tpu_torch.ops import conv3x3 as C
 from naturaldiffusion_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_gn
+import torch_port_util  # noqa: F401  binds torch's CPU math first
 
 torch.set_num_threads(2)
 

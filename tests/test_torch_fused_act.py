@@ -9,6 +9,7 @@ import torch
 
 from naturaldiffusion_tpu.ops import fused_act as J
 from naturaldiffusion_tpu_torch.ops import fused_act as P
+import torch_port_util  # noqa: F401  binds torch's CPU math first
 
 torch.set_num_threads(2)
 

@@ -9,6 +9,7 @@ import torch
 
 from naturaldiffusion_tpu.ops import group_norm as jgn
 from naturaldiffusion_tpu_torch.ops import group_norm as tgn
+import torch_port_util  # noqa: F401  binds torch's CPU math first
 
 torch.set_num_threads(2)
 

@@ -119,3 +119,112 @@ def test_matrix_load_reads_the_jax_files(tmp_path):
     got, want = CoeffMatrix.load(path), registry.derive("ddpm", 6)
     for f in ("x0", "eps", "node"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+@pytest.mark.parametrize("ptype", ["eps", "x0", "score", "v_flow", "v_vp"])
+def test_from_x0_round_trips_and_equals_jax(ptype):
+    from naturaldiffusion_tpu.engine.predictions import from_x0 as jax_from
+    from naturaldiffusion_tpu_torch.engine import from_x0, to_x0
+    rng = np.random.default_rng(6)
+    x0, x = rng.standard_normal((2, 3, 4, 4, 3))
+    alpha, sigma = 0.6, 0.8
+    pred = from_x0(torch.from_numpy(x0), torch.from_numpy(x), alpha, sigma,
+                   ptype)
+    np.testing.assert_allclose(pred.numpy(), np.asarray(jax_from(
+        jnp.asarray(x0), jnp.asarray(x), alpha, sigma, ptype)), rtol=1e-12,
+        atol=1e-12)
+    back = to_x0(pred, torch.from_numpy(x), alpha, sigma, ptype,
+                 accum_dtype=torch.float64)
+    assert back.dtype == torch.float64
+    np.testing.assert_allclose(back.numpy(), x0, rtol=1e-12, atol=1e-12)
+    with pytest.raises(ValueError, match="prediction_type"):
+        from_x0(pred, pred, alpha, sigma, "nope")
+
+
+@pytest.mark.parametrize("accum", ["float32", "float64"])
+def test_to_x0_accum_dtype_equals_jax(accum):
+    from naturaldiffusion_tpu.engine.predictions import to_x0 as jax_to
+    from naturaldiffusion_tpu_torch.engine import to_x0
+    rng = np.random.default_rng(7)
+    pred = rng.standard_normal((2, 4, 4, 3)).astype(np.float32)
+    x = rng.standard_normal((2, 4, 4, 3)).astype(np.float32)
+    alpha, sigma = 6.4e-3, 0.99998
+    got = to_x0(torch.from_numpy(pred), torch.from_numpy(x), alpha, sigma,
+                "eps", accum_dtype=getattr(torch, accum))
+    want = np.asarray(jax_to(jnp.asarray(pred), jnp.asarray(x), alpha, sigma,
+                             "eps", accum_dtype=getattr(jnp, accum)))
+    assert str(got.dtype).endswith(accum) and want.dtype == np.dtype(accum)
+    tol = 1e-12 if accum == "float64" else 1e-5
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+
+
+def test_engine_float64_matches_reference():
+    """``accum_dtype=float64`` on the CPU: the engine's buffers, sums and
+    coefficients in float64 against the float64 reference loop; the card
+    refuses it (K1 sums in float32)."""
+    n = 10
+    matrix = registry.derive("ddpm", n)
+    rng = np.random.default_rng(8)
+    init = rng.standard_normal((2, 4, 4, 3))
+    noises = rng.standard_normal((n, 2, 4, 4, 3))
+    want = natural_inference_reference(_toy_numpy, matrix, init,
+                                       noises=noises, prediction_type="eps")
+    sched = NISchedule.from_matrix(matrix, device="cpu", dtype=torch.float64)
+    got = natural_inference(_toy_torch, sched, torch.from_numpy(init),
+                            noises=torch.from_numpy(noises),
+                            prediction_type="eps", accum_dtype=torch.float64)
+    assert got.dtype == torch.float64
+    assert rel_l2(got.numpy(), want) < 1e-12
+    with pytest.raises(ValueError, match="CPU only"):
+        natural_inference(_toy_torch, sched, torch.zeros(1, 4, device="meta"),
+                          accum_dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        natural_inference(_toy_torch, sched, torch.zeros(1, 4),
+                          accum_dtype=torch.float16)
+
+
+def test_checked_raises_on_a_poisoned_schedule():
+    """A NaN coefficient reaches the samples: the checked engine raises on
+    the host after the loop, as the JAX one throws under checkify; a sound
+    schedule returns what ``natural_inference`` returns."""
+    from naturaldiffusion_tpu.engine import natural_inference_checked as jchk
+    from naturaldiffusion_tpu_torch.engine import natural_inference_checked
+    from naturaldiffusion_tpu_torch.coeffs.matrix import CoeffMatrix
+    n = 4
+    good = registry.derive("ddim", n)
+    x0 = good.x0.copy()
+    x0[2, 1] = np.nan
+    bad = CoeffMatrix(x0=x0, eps=good.eps, node=good.node)
+    init = np.random.default_rng(9).standard_normal((2, 4, 4, 3))
+    z = torch.tensor(init, dtype=torch.float32)
+    out = natural_inference_checked(
+        _toy_torch, NISchedule.from_matrix(good, device="cpu"), z)
+    torch.testing.assert_close(out, natural_inference(
+        _toy_torch, NISchedule.from_matrix(good, device="cpu"), z),
+        rtol=0, atol=0)
+    with pytest.raises(FloatingPointError, match="non-finite"):
+        natural_inference_checked(
+            _toy_torch, NISchedule.from_matrix(bad, device="cpu"), z)
+    with pytest.raises(Exception, match="non-finite|nan"):
+        jchk(lambda zz, t: jnp.tanh(0.5 * zz) + t / 1000.0,
+             JaxSchedule.from_matrix(bad), jnp.asarray(init, jnp.float32))
+
+
+@pytest.mark.parametrize("name", ["ddpm", "sde_euler"])
+def test_reference_default_noises_equal_jax(name):
+    """Without ``noises`` a stochastic matrix draws step k's noise from
+    ``default_rng(1000 + k)`` in both packages."""
+    from naturaldiffusion_tpu.engine import (
+        natural_inference_reference as jax_ref)
+    matrix = registry.derive(name, 6)
+    assert not matrix.is_deterministic
+    init = np.random.default_rng(10).standard_normal((2, 4, 4, 3))
+    got = natural_inference_reference(_toy_numpy, matrix, init,
+                                      prediction_type="eps")
+    want = jax_ref(_toy_numpy, jax_registry.derive(name, 6), init,
+                   prediction_type="eps")
+    np.testing.assert_array_equal(got, want)
+    noises = np.stack([np.random.default_rng(1000 + k).standard_normal(
+        init.shape) for k in range(6)])
+    np.testing.assert_array_equal(got, natural_inference_reference(
+        _toy_numpy, matrix, init, noises=noises, prediction_type="eps"))

@@ -15,6 +15,7 @@ from naturaldiffusion_tpu.ops.qmatmul import qmatmul_ok as jax_qmatmul_ok
 from naturaldiffusion_tpu.ops.quant import quantize_weight as jax_quantize
 from naturaldiffusion_tpu_torch.ops import qmatmul as Q
 from naturaldiffusion_tpu_torch.ops.quant import quantize_weight
+import torch_port_util  # noqa: F401  binds torch's CPU math first
 
 torch.set_num_threads(2)
 

@@ -20,6 +20,7 @@ from naturaldiffusion_tpu_torch.models import layers as L
 from naturaldiffusion_tpu_torch.models.ncsnpp import (
     CIFAR10_DDPMPP_CONTINUOUS, NCSNpp)
 from naturaldiffusion_tpu_torch.ops import conv3x3 as tconv
+import torch_port_util  # noqa: F401  binds torch's CPU math first
 
 CELEBAHQ = "ve/celebahq_256_ncsnpp_continuous"
 

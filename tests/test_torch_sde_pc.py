@@ -17,6 +17,7 @@ from naturaldiffusion_tpu.samplers import pc as jpc
 from naturaldiffusion_tpu_torch import scaler
 from naturaldiffusion_tpu_torch.samplers import pc
 from naturaldiffusion_tpu_torch.sde import VESDE, get_score_fn
+import torch_port_util  # noqa: F401  binds torch's CPU math first
 
 torch.set_num_threads(2)
 

@@ -17,6 +17,7 @@ from naturaldiffusion_tpu_torch.apps import bench_dit
 from naturaldiffusion_tpu_torch.utils import NFECounter, Timer, trace
 from naturaldiffusion_tpu_torch.utils import flops as FL
 from naturaldiffusion_tpu_torch.utils import trace_summary as TS
+import torch_port_util  # noqa: F401  binds torch's CPU math first
 
 torch.set_num_threads(2)
 

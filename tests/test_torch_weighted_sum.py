@@ -10,6 +10,7 @@ from naturaldiffusion_tpu.ops.weighted_sum import (fused_weighted_sum_pallas,
                                                    weighted_sum_xla)
 from naturaldiffusion_tpu_torch.ops.weighted_sum import (
     SPLITS, _ws_plan, fused_weighted_sum, weighted_sum)
+import torch_port_util  # noqa: F401  binds torch's CPU math first
 
 torch.set_num_threads(2)
 

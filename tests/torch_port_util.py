@@ -1,11 +1,25 @@
 """Shared helpers of the ``test_torch_*`` files: random weights for the JAX
-NCSN++ made with numpy, so the same weights go through both packages."""
+NCSN++ made with numpy, so the same weights go through both packages.
+
+Every ``test_torch_*`` file imports this module before it runs anything, and
+importing it binds torch's CPU math first: in a pytest-xdist worker whose
+first test ran a JAX interpret kernel (``group_norm_pallas(interpret=True)``)
+before torch's first SiLU, the port's plain GroupNorm on the same inputs read
+up to 3.2e-5 off in about one run of its file in 15.  A torch call first, or
+``LD_BIND_NOW=1`` (every symbol bound when its library loads), made every run
+byte-identical."""
 
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
+
+from naturaldiffusion_tpu_torch.ops.group_norm import fused_group_norm
+
+fused_group_norm(torch.ones(2, 2, 2, 8), torch.ones(8), torch.zeros(8), 2,
+                 act="silu", extra_bias=torch.ones(1, 8))
 
 # the fused-resblock test config (tests/test_conv3x3.py), plus attention at
 # 4x4 so AttnBlockpp is on the path
