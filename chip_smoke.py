@@ -19,6 +19,16 @@ printed as one line with its numbers and seconds as it ends:
            DiT's latent; K6 at the forward's standalone GroupNorms, with its
            form, cluster, bound share and host time a call.  Then the bf16
            conv kernel at ragged shapes of no model.
+  int8_kernels  the hand-written int8 conv (``ops.quant.conv3x3_int8``) at
+           every 3x3 int8 conv shape of the CIFAR bench's default walk
+           (unfused, ``int8_static``) at batch 64, static and dynamic: its
+           int8 operands and its output against the plain version bit for
+           bit, a seeded fault in one int8 weight, then timed beside its
+           bound, the plain version, cuDNN's bf16 conv and
+           ``torch._int_mm`` over an im2col of the int8 input.
+  routes   one batch-64 CIFAR forward in bf16 under each form of the conv
+           switch and the int8 modes (``ROUTE_FORMS``) against the f32
+           fused forward, with each form's kernel launches.
   forward  one full-width CIFAR-10 NCSN++ forward on 2 images in float32:
            the card (kernels) against the CPU (plain versions).
   slice    the main path: 10-step DDPM Natural Inference over a batch of 64
@@ -38,6 +48,12 @@ printed as one line with its numbers and seconds as it ends:
            fault (one resblock conv zeroed in place) that must exceed the
            limit.  The bench's FLOP count runs on the CPU during the build
            phase.
+  bench_forms   the port bench in ``bench.py``'s own form (its default:
+           unfused convs, ``int8_static``) with one 1024-image dispatch,
+           then each of ``BENCH_FORMS`` at 2 micro-batches a dispatch;
+           each form's build launches, its JSON line, a traced dispatch of
+           2 replays (busy share, device launches) and one chunk graphed
+           against eager.
   dit_kernels   kernels K9 (flash attention) and K7 (W8A16 matmul) against
            their plain versions at DiT-XL/2's shapes (and K9 at an
            unaligned t = 250, K7 at ragged M, N = 128 and K = 8192), timed
@@ -85,6 +101,8 @@ printed as one line with its numbers and seconds as it ends:
   tool_trace    ``apps.bench_dit --toy --steps 10 --trace --count-flops``
            on the card, its trace read by ``utils.trace_summary``;
            ``apps.bench_conv --shapes 1``.
+  conv_model    ``apps.bench_conv --model ve/celebahq_256_ncsnpp_continuous``
+           at one forward a run, 2 runs a route.
 
 Any failure raises and exits non-zero.  The last two lines are the kernels
 JSON and ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -96,6 +114,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import copy
+import functools
 import json
 import math
 import os
@@ -139,6 +158,12 @@ SLICE_F32_TOL = 1e-3
 BENCH_TOTAL = 1024
 BENCH_CHUNKS_EAGER = 2
 BENCH_CHUNKS_TRACED = 2
+# a trace of graph replays can lose device records, never add one (two
+# H100 runs read 5 and 22 of K1/K2/K3/K6's 2,080 launches short, with the
+# wrappers' counts right): a dispatch whose trace counts fewer launches
+# than its graph holds is profiled again, up to this many traces in all,
+# and one trace must count them exactly
+BENCH_TRACE_TRIES = 3
 # one 64-image chunk of the bench with random weights (randomize_), the
 # CUDA graph's replay against the eager loop with the same init and noises,
 # relative L2: K3's channel sums and K6 add by f32 atomics in any order, so
@@ -156,6 +181,24 @@ BENCH_CHUNKS_TRACED = 2
 # the CPU) is inside the bf16 floor and this check cannot see it
 BENCH_GRAPH_TOL = 1e-2
 BENCH_FAULT_CONV = "layers.m3.Conv_1"
+# the forms of the route switch and the int8 modes: (NATDIFF_PALLAS_CONV,
+# NATDIFF_QUANT) of the routes phase's batch-64 forwards, each held against
+# the f32 fused forward at the limits of the JAX package's int8 model test
+# (tests/test_quant.py:89-94: relative L2 < 5e-2, cosine > 0.99), beside
+# the bf16 fused form's reading (the bf16 control)
+ROUTE_FORMS = (("2", ""), ("1", ""), ("0", ""), ("0", "int8"),
+               ("0", "int8_static"), ("0", "int8_all_static"))
+ROUTES_REL, ROUTES_COS = 5e-2, 0.99
+# the bench's own default form, bench.py's (one full 1024-image dispatch),
+# and the other forms (NATDIFF_PALLAS_CONV, BENCH_QUANT, BENCH_MODS), each
+# at BENCH_FORM_CHUNKS micro-batches a dispatch; the fused bf16 form is the
+# bench phase's
+BENCH_DEFAULT_FORM = ("0", "int8_static", False)
+BENCH_FORMS = (("0", "", False), ("1", "", False), ("0", "int8", False),
+               ("0", "int8_all", False), ("0", "int8_all_static", True))
+BENCH_FORM_CHUNKS = 2
+# the H100's dense int8 tensor-core rate (data sheet), operations/s
+INT8_PEAK = 1979e12
 # images per second of the CIFAR slice before this script's phases ran K6
 # on it (PERF.md section 6: 69.05 on an NVIDIA H100 80GB HBM3 at 700 W)
 CIFAR_IMG_PER_S_BEFORE_K6 = 69.05
@@ -263,22 +306,12 @@ def phase(name, t_start, **numbers):
 
 
 def randomize_(model, seed):
-    """Non-trivial random weights: the JAX init zeroes the residual and head
-    convs, which would hide a wrong conv.  Kernels ~ N(0, 1/fan_in)."""
-    import torch
-    g = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "scale":
-                v = 1.0 + 0.1 * torch.randn(p.shape, generator=g)
-            elif leaf in ("bias", "b"):
-                v = 0.1 * torch.randn(p.shape, generator=g)
-            else:
-                v = torch.randn(p.shape, generator=g) / math.sqrt(
-                    math.prod(p.shape[:-1]))
-            p.copy_(v)
-    return model
+    """Non-trivial random weights (the JAX init zeroes the residual and head
+    convs, which would hide a wrong conv): the port's
+    ``models.convert.randomize_``, imported once the checkout is on the
+    path."""
+    from naturaldiffusion_tpu_torch.models.convert import randomize_ as fill
+    return fill(model, seed)
 
 
 def rel_l2(a, b):
@@ -417,7 +450,7 @@ def phase_build():
 # sources whose every kernel instance the build phase lists and holds to
 # zero spills
 PTXAS_CHECKED = ("conv3x3", "qmatmul", "attention", "group_norm",
-                 "weighted_sum")
+                 "weighted_sum", "conv3x3_int8")
 
 
 def kernel_name(mangled):
@@ -951,18 +984,20 @@ def bench_counters():
 
 
 def trace_launches(logdir):
-    """Device launches of K1, K2, K3 and K6 in the newest ``torch.profiler``
-    trace under ``logdir``, by kernel name.  K2 is the tensor-core conv's
+    """Device launches of K1, K2, K3, K6 and the int8 conv in the newest
+    ``torch.profiler`` trace under ``logdir``, by kernel name.  K2 is the tensor-core conv's
     instance without prologue, skip or sums (K4 runs the same instance in
     bf16; the CIFAR path has no K4), K3 every other instance; K6 is one
     ``gn_*`` kernel a call in its on-chip form, the CIFAR form."""
     from naturaldiffusion_tpu_torch.utils import trace_summary
     n = {"fused_weighted_sum": 0, "conv3x3": 0, "conv3x3_gn": 0,
-         "fused_group_norm": 0}
+         "fused_group_norm": 0, "conv3x3_int8": 0}
     for e in trace_summary.load_events(logdir):
         name = e.get("name", "")
         if "weighted_sum_kernel" in name:
             n["fused_weighted_sum"] += 1
+        elif "conv3x3_int8_kernel<" in name:
+            n["conv3x3_int8"] += 1
         elif "conv3x3_tc_kernel<" in name:
             args = name.split("conv3x3_tc_kernel<", 1)[1].split(">", 1)[0]
             flags = [f.strip() for f in args.split(",")[2:5]]
@@ -970,6 +1005,33 @@ def trace_launches(logdir):
         elif "gn_onchip_kernel" in name or "gn_grid_kernel" in name:
             n["fused_group_norm"] += 1
     return n
+
+
+def whole_trace_launches(B, b, logdir, rec, want):
+    """``trace_launches`` of the dispatch that ``B.measure`` profiled into
+    ``logdir`` for ``rec``, compared on ``want``'s kernels: a trace that
+    counts fewer of some and more of none lost records, and the dispatch is
+    profiled again (``rec`` takes the new one's numbers) until a trace
+    counts ``want`` or BENCH_TRACE_TRIES traces were made.  ``tries`` in
+    ``rec["traced_dispatch"]`` counts the traces; the caller holds the
+    counts returned to ``want``."""
+    import contextlib as cl
+    import io
+    for tries in range(1, BENCH_TRACE_TRIES + 1):
+        traced = trace_launches(logdir)
+        got = {k: traced[k] for k in want}
+        if (got == want or tries == BENCH_TRACE_TRIES
+                or any(got[k] > want[k] for k in want)):
+            break
+        print(f"  bench {rec['form']}: trace {tries} counts {got}, fewer "
+              f"than the graph's {want}: the profiler lost records; "
+              f"profiling again", flush=True)
+        with cl.redirect_stdout(io.StringIO()):
+            prof = B.profile_dispatch(b, logdir, 99 + tries,
+                                      BENCH_CHUNKS_TRACED)
+        rec["traced_dispatch"], rec["busy"] = prof, round(prof["busy"], 4)
+    rec["traced_dispatch"]["tries"] = tries
+    return traced
 
 
 def bench_eager_s(b, chunks, seed):
@@ -1014,9 +1076,12 @@ def phase_bench(n_plain, n_gn, n_k6, flops):
     # the main path: zeroed before the bench is built, read after its run;
     # the wrappers count its eager warm-up and its capture, once each (a
     # replay calls no wrapper)
+    want_traced = {k: BENCH_CHUNKS_TRACED * v for k, v in per_chunk.items()
+                   if k != "conv3x3_tiled"}
+    want_traced["conv3x3_int8"] = 0
     zero_counts(counters)
     b = B.Bench(micro=BATCH, total=BENCH_TOTAL, steps=STEPS, device="cuda",
-                graph=True)
+                graph=True, conv="2", quant="")
     b.dispatch(2)                                   # warm dispatch
     logdir = tempfile.mkdtemp(prefix="natdiff_bench_")
     buf = io.StringIO()
@@ -1024,7 +1089,7 @@ def phase_bench(n_plain, n_gn, n_k6, flops):
         with cl.redirect_stdout(buf):
             graphed = B.measure(b, flops, trace_dir=logdir,
                                 trace_chunks=BENCH_CHUNKS_TRACED)
-        traced = trace_launches(logdir)
+        traced = whole_trace_launches(B, b, logdir, graphed, want_traced)
     finally:
         shutil.rmtree(logdir, ignore_errors=True)
     launches = read_counts(counters)
@@ -1032,12 +1097,11 @@ def phase_bench(n_plain, n_gn, n_k6, flops):
     if launches != {k: 2 * v for k, v in per_chunk.items()}:
         raise AssertionError(f"bench launches {launches}, want twice "
                              f"{per_chunk}")
-    want_traced = {k: BENCH_CHUNKS_TRACED * v for k, v in per_chunk.items()
-                   if k != "conv3x3_tiled"}
     if traced != want_traced:
         raise AssertionError(f"bench: the traced dispatch's device launches "
                              f"{traced} != {want_traced}")
     if not (graphed["graph"] and graphed["busy"] is not None
+            and graphed["form"] == "fused_bf16"
             and graphed["total_batch"] == BENCH_TOTAL
             and graphed["micro_batch"] == BATCH and graphed["steps"] == STEPS
             and graphed["value"] > 0):
@@ -1113,6 +1177,381 @@ def phase_bench(n_plain, n_gn, n_k6, flops):
     del b
     torch.cuda.empty_cache()
     return launches, traced, dict(graphed=graphed, eager=eager)
+
+
+# ----------------------------------------------- int8 convs, routes, forms
+
+def int8_signatures(model, x, t):
+    """{(x shape, w shape): calls} of the int8 3x3 convs of one forward in
+    the bench's default form (``NATDIFF_PALLAS_CONV=0``, ``int8_static``)."""
+    import torch
+    from naturaldiffusion_tpu_torch.apps.bench import form_env
+    from naturaldiffusion_tpu_torch.models.layers import PConv3x3
+    seen = {}
+
+    def hook(mod, args, kwargs, out):
+        fused = (kwargs.get("pre") is not None
+                 or kwargs.get("skip") is not None or kwargs.get("emit_stats"))
+        if not fused and mod.route(args[0]) == "int8":
+            k = (tuple(args[0].shape), tuple(mod.kernel.shape))
+            seen[k] = seen.get(k, 0) + 1
+
+    hooks = [m.register_forward_hook(hook, with_kwargs=True)
+             for m in model.modules() if isinstance(m, PConv3x3)]
+    with torch.no_grad(), form_env(*BENCH_DEFAULT_FORM[:2]):
+        model(x, t)
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def int8_cost(xs, ws, dyn):
+    """Operations, bytes (bf16 x in, int8 weights, f32 s_w, bf16 bias and
+    y out, per-sample f32 scales) and the bound in ms of one int8 conv."""
+    b, h, w, cin = xs
+    cout = ws[3]
+    ops = 2.0 * b * h * w * 9 * cin * cout
+    nbytes = (2 * b * h * w * cin + 9 * cin * cout + 6 * cout
+              + 2 * b * h * w * cout + (4 * b if dyn else 0))
+    t_ops, t_bytes = ops / INT8_PEAK, nbytes / HBM_BYTES_PER_S
+    return ops, nbytes, max(t_ops, t_bytes) * 1e3, (
+        "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bf16_ulps(a, b):
+    """Largest distance in bf16 units in the last place between two bf16
+    tensors of the same signs (their bit patterns as integers)."""
+    import torch
+    d = (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+    return int(d.max()) if d.numel() else 0
+
+
+def phase_int8_kernels(model_bf16, details):
+    """The int8 conv at every 3x3 int8 conv shape of the CIFAR bench's
+    default (unfused int8) walk at batch 64, static and dynamic: its int8
+    operands (the weights made on the card against the CPU's bytes; the
+    activations read back through an identity tap, whose bf16 outputs are
+    one to one with the int8 values) and its output against the plain
+    version bit for bit, a seeded fault in one int8 weight, then timed
+    beside its bound, the plain version and two library yardsticks the
+    port never calls on the path: ``F.conv2d`` in bf16 (cuDNN) and
+    ``torch._int_mm`` over an im2col of the int8 input (made beforehand)."""
+    import torch
+    import torch.nn.functional as F
+    from naturaldiffusion_tpu_torch.ops import quant as Q
+
+    t0 = time.perf_counter()
+    timer, slow = Timer(torch), Timer(torch, reps=3)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x = rn(BATCH, 32, 32, 3).to(torch.bfloat16)
+    sigs = int8_signatures(model_bf16, x, torch.full((BATCH,), 500.0,
+                                                     device="cuda"))
+    n_int8 = sum(sigs.values())
+    amax = Q.static_amax()
+    rows = []
+    for (xs, ws), mult in sigs.items():
+        b, h, w, cin = xs
+        cout = ws[3]
+        # |x| up to ~9, so the static clip at 6 is reached
+        xx = (2.0 * rn(*xs)).to(torch.bfloat16)
+        wt = (rn(*ws) / math.sqrt(9 * cin)).to(torch.bfloat16)
+        bias = (0.1 * rn(cout)).to(torch.bfloat16)
+        w_i8, s_w, wk = Q.quantize_conv_weight(wt)
+        on_cpu = Q.quantize_conv_weight(wt.cpu())
+        if not all(torch.equal(a.cpu(), c) for a, c in zip((w_i8, s_w, wk),
+                                                           on_cpu)):
+            raise AssertionError(f"int8 {xs}: weights quantized on the card "
+                                 f"differ from the CPU's")
+        eye = torch.zeros((3, 3, cin, cin), dtype=torch.int8, device="cuda")
+        eye[1, 1] = torch.eye(cin, dtype=torch.int8, device="cuda")
+        ones = torch.ones(cin, device="cuda")
+        row = dict(sig=repr((xs, ws)), per_forward=mult,
+                   plan=Q._int8_plan(b, h, w, cin, cout))
+        for mode, am in (("static", amax), ("dynamic", None)):
+            got = Q.conv3x3_int8(xx, None, None, w_i8=eye, s_w=ones,
+                                 act_amax=am)
+            want = Q.conv3x3_int8_reference(xx, eye, ones, act_amax=am)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"int8 {xs} {mode}: activation operands differ in "
+                    f"{int((got != want).sum())} elements")
+            run = functools.partial(Q.conv3x3_int8, xx, None, bias, w_i8=w_i8,
+                                    s_w=s_w, w_kern=wk, act_amax=am)
+            got = run()
+            want = Q.conv3x3_int8_reference(xx, w_i8, s_w, bias, act_amax=am)
+            ndiff = int((got != want).sum())
+            row[f"differ_{mode}"] = ndiff
+            row[f"ulps_{mode}"] = bf16_ulps(got, want)
+            if ndiff:
+                raise AssertionError(
+                    f"int8 {xs} {mode}: {ndiff} elements differ from the "
+                    f"plain version, by up to {row[f'ulps_{mode}']} ulps")
+            # a seeded fault: one int8 weight (centre tap, output 0, input
+            # 0) moved by one step must move the output
+            wf = wk.clone()
+            v = int(wf[4, 0, 0])
+            wf[4, 0, 0] = v + 1 if v < 127 else v - 1
+            bad = Q.conv3x3_int8(xx, None, bias, w_i8=w_i8, s_w=s_w,
+                                 w_kern=wf, act_amax=am)
+            row[f"fault_differs_{mode}"] = int((bad != want).sum())
+            if not row[f"fault_differs_{mode}"]:
+                raise AssertionError(f"int8 {xs} {mode}: a changed weight "
+                                     f"left the output equal")
+            row[f"ms_{mode}"] = timer(run)
+            (row[f"ops_{mode}"], row[f"bytes_{mode}"], row[f"bound_ms_{mode}"],
+             row[f"bound_by_{mode}"]) = int8_cost(xs, ws, mode == "dynamic")
+        row["plain_ms"] = slow(lambda: Q.conv3x3_int8_reference(
+            xx, w_i8, s_w, bias, act_amax=amax))
+        xcl = xx.permute(0, 3, 1, 2)
+        wcl = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        row["library_ms"] = timer(lambda: F.conv2d(xcl, wcl, bias, padding=1))
+        # torch._int_mm over an im2col of the int8 input; its int32 sums
+        # also hold the plain version's
+        xq = Q.quantize_act_static(xx, amax)[0]
+        xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+        cols = torch.cat([xp[:, dy:dy + h, dx:dx + w] for dy in range(3)
+                          for dx in range(3)], dim=-1).reshape(b * h * w,
+                                                               9 * cin)
+        wmat = w_i8.reshape(9 * cin, cout).t().contiguous()
+        acc = torch._int_mm(cols, wmat.t())
+        with torch.backends.cudnn.flags(enabled=False):
+            want_acc = F.conv2d(xq.permute(0, 3, 1, 2).double(),
+                                w_i8.permute(3, 2, 0, 1).double(), padding=1)
+        if not torch.equal(acc, want_acc.permute(0, 2, 3, 1).reshape(
+                b * h * w, cout).to(torch.int32)):
+            raise AssertionError(f"int8 {xs}: torch._int_mm's sums differ "
+                                 f"from the plain version's")
+        row["int_mm_ms"] = timer(lambda: torch._int_mm(cols, wmat.t()))
+        rows.append(row)
+        print(f"  conv3x3_int8 {xs} -> {cout} x{mult}: static "
+              f"{row['ms_static']:.4f} ms ({row['ops_static'] / row['ms_static'] / 1e9:.1f} "
+              f"TOPS, {row['bound_ms_static'] / row['ms_static']:.3f} of the "
+              f"{row['bound_by_static']} bound {row['bound_ms_static']:.4f}), "
+              f"dynamic {row['ms_dynamic']:.4f}, plain {row['plain_ms']:.3f}, "
+              f"cuDNN bf16 {row['library_ms']:.4f}, _int_mm "
+              f"{row['int_mm_ms']:.4f}; plan cfg {row['plan']['cfg']} grid "
+              f"{row['plan']['grid']}; fault moved {row['fault_differs_static']}",
+              flush=True)
+        del xx, cols, xq, xp
+    details["conv3x3_int8"] = rows
+    tot = {k: sum(r[k] * r["per_forward"] for r in rows)
+           for k in ("ms_static", "ms_dynamic", "plain_ms", "library_ms",
+                     "int_mm_ms", "bound_ms_static", "ops_static",
+                     "bytes_static")}
+    bound_by = ("operations" if tot["ops_static"] / INT8_PEAK
+                >= tot["bytes_static"] / HBM_BYTES_PER_S else "bytes")
+    entry = dict(
+        name="conv3x3_int8", route="cuda",
+        source="naturaldiffusion_tpu_torch/csrc/conv3x3_int8.cu",
+        replaces="naturaldiffusion_tpu/ops/quant.py:153",
+        max_abs_err=0.0, ms=tot["ms_static"], plain_ms=tot["plain_ms"],
+        bound_ms=tot["bound_ms_static"], bound_by=bound_by,
+        library_ms=tot["library_ms"],
+        library_int_mm_ms=tot["int_mm_ms"], ms_dynamic=tot["ms_dynamic"],
+        note="not Pallas: JAX's conv3x3_int8 is an XLA s8 conv "
+             "(ops/quant.py:153-156); static mode, summed over one "
+             "batch-64 forward's int8 launches; library_ms is cuDNN's bf16 "
+             "conv, library_int_mm_ms torch._int_mm over an im2col")
+    phase("int8_kernels", t0, shapes=len(rows), per_forward_launches=n_int8,
+          bitwise_equal=True,
+          per_forward={k: round(v, 4) for k, v in tot.items()
+                       if "ms" in k},
+          achieved_tops=tot["ops_static"] / tot["ms_static"] / 1e9,
+          bound_by=bound_by)
+    return entry, n_int8
+
+
+def form_counters():
+    from naturaldiffusion_tpu_torch.ops import quant as Q
+    return dict(bench_counters(), conv3x3_int8=Q.conv3x3_int8)
+
+
+def cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def phase_routes(model_bf16, model_f32, n_plain, n_gn, n_int8):
+    """One batch-64 CIFAR forward in bf16 under each of ROUTE_FORMS,
+    against the f32 fused forward of the same weights, with the launches
+    of each: no K2, K3 or K4 under ``0``; one int8 launch per unfused 3x3
+    conv with channel counts multiples of 128 under an int8 mode."""
+    import torch
+    from naturaldiffusion_tpu_torch.apps.bench import form_env, form_name
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    x = torch.randn((BATCH, 32, 32, 3), generator=gen, device="cuda")
+    tc = torch.linspace(10.0, 990.0, BATCH, device="cuda")
+    card32 = copy.deepcopy(model_f32).to("cuda")
+    with torch.no_grad(), form_env("2", ""):
+        ref = card32(x, tc)
+    del card32
+    counters = form_counters()
+    res = {}
+    for flag, quant in ROUTE_FORMS:
+        with torch.no_grad(), form_env(flag, quant):
+            model_bf16(x.to(torch.bfloat16), tc)      # int8 weights, plans
+            torch.cuda.synchronize()
+            zero_counts(counters)
+            out = model_bf16(x.to(torch.bfloat16), tc)
+            torch.cuda.synchronize()
+        n = read_counts(counters)
+        name = f"{form_name(flag, quant)}_conv{flag}"
+        res[name] = dict(rel_l2=rel_l2(out, ref), cos=cosine(out, ref),
+                         launches=n)
+        want = {"conv3x3_int8": n_int8 if quant and flag == "0" else 0,
+                "conv3x3_tiled": 0}
+        if flag == "0":
+            want.update(conv3x3=0, conv3x3_gn=0)
+        elif flag == "1":
+            want.update(conv3x3=n_plain + n_gn, conv3x3_gn=0)
+        else:
+            want.update(conv3x3=n_plain, conv3x3_gn=n_gn)
+        got = {k: n[k] for k in want}
+        print(f"  routes {name}: rel L2 {res[name]['rel_l2']:.3e} against "
+              f"the f32 fused forward, cos {res[name]['cos']:.6f}, launches "
+              f"{n}", flush=True)
+        if got != want or not torch.isfinite(out).all():
+            raise AssertionError(f"routes {name}: launches {got} != {want}")
+        if res[name]["rel_l2"] > ROUTES_REL or res[name]["cos"] < ROUTES_COS:
+            raise AssertionError(f"routes {name}: {res[name]} past "
+                                 f"{ROUTES_REL:g} / {ROUTES_COS}")
+    phase("routes", t0, forms=res,
+          control_bf16=res["fused_bf16_conv2"]["rel_l2"],
+          limits=dict(rel_l2=ROUTES_REL, cos=ROUTES_COS))
+    return res
+
+
+def bench_form(B, net, flops, conv, quant, mods, total, want_traced):
+    """One bench form on ``net``: its build (eager warm-up and capture)
+    and its run counted, the JSON line of its timed dispatch (one of
+    ``total`` images if that is the full bench, else 5) with, unless
+    ``want_traced`` is None, a profiled dispatch of BENCH_CHUNKS_TRACED
+    replays (the card's busy share) and its device launches
+    (``whole_trace_launches`` against ``want_traced``), and one chunk
+    graphed against eager."""
+    import contextlib as cl
+    import io
+    import shutil
+    import tempfile
+    import torch
+
+    counters = form_counters()
+    zero_counts(counters)
+    b = B.Bench(micro=BATCH, total=total, steps=STEPS, device="cuda",
+                graph=True, conv=conv, quant=quant, mods=mods, net=net)
+    b.dispatch(2, chunks=2)                         # warm
+    trace = want_traced is not None
+    logdir = tempfile.mkdtemp(prefix="natdiff_form_") if trace else None
+    buf = io.StringIO()
+    try:
+        with cl.redirect_stdout(buf):
+            rec = B.measure(b, flops, trace_dir=logdir,
+                            trace_chunks=BENCH_CHUNKS_TRACED,
+                            dispatches=1 if total == BENCH_TOTAL else 5)
+        traced = (whole_trace_launches(B, b, logdir, rec, want_traced)
+                  if trace else None)
+    finally:
+        if logdir:
+            shutil.rmtree(logdir, ignore_errors=True)
+    launches = read_counts(counters)
+
+    def chunk(graph):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 42)
+        out = (b.chunk if graph else b.eager_chunk)(1, g).clone()
+        torch.cuda.synchronize()
+        return out
+
+    eager = chunk(False)
+    replay = chunk(True)
+    err = rel_l2(replay, eager)
+    del b
+    torch.cuda.empty_cache()
+    return rec, launches, traced, err, bool(torch.isfinite(replay).all())
+
+
+def phase_bench_forms(flops, n_plain, n_gn, n_int8):
+    """The port bench in bench.py's own form (the default: unfused convs,
+    int8_static) with one full 1024-image dispatch and a traced one of
+    BENCH_CHUNKS_TRACED replays, then each of BENCH_FORMS at
+    BENCH_FORM_CHUNKS micro-batches; all on one randomized bf16 NCSN++.
+    Each form: its JSON line (form, conv, quant, mods, img/s, busy), the
+    launches of its build (an eager warm-up and a capture of one 64-image
+    run) and of its traced replays, and one chunk graphed against eager
+    (BENCH_GRAPH_TOL)."""
+    import torch
+    from naturaldiffusion_tpu_torch.apps import bench as B
+    from naturaldiffusion_tpu_torch.models.ncsnpp import (
+        CIFAR10_DDPMPP_CONTINUOUS, NCSNpp)
+
+    t0 = time.perf_counter()
+    net = randomize_(NCSNpp(CIFAR10_DDPMPP_CONTINUOUS, device="cpu"),
+                     SEED + 6).to(device="cuda", dtype=torch.bfloat16).eval()
+    out, default_launches, default_traced = {}, None, None
+    forms = [BENCH_DEFAULT_FORM + (BENCH_TOTAL,)] + [
+        f + (BENCH_FORM_CHUNKS * BATCH,) for f in BENCH_FORMS]
+    for conv, quant, mods, total in forms:
+        default = (conv, quant, mods) == BENCH_DEFAULT_FORM
+        per_run = {"fused_weighted_sum": STEPS,
+                   "conv3x3_int8": STEPS * n_int8 if quant else 0,
+                   "conv3x3": STEPS * (n_plain + n_gn) if conv == "1" else 0,
+                   "conv3x3_gn": 0, "conv3x3_tiled": 0}
+        # the replays' device launches, as the wrappers counted the build
+        want_traced = {k: BENCH_CHUNKS_TRACED * per_run[k] for k in (
+            "fused_weighted_sum", "conv3x3", "conv3x3_gn", "conv3x3_int8")}
+        rec, launches, traced, err, finite = bench_form(
+            B, net, flops, conv, quant, mods, total, want_traced)
+        got = {k: launches[k] for k in per_run}
+        want = {k: 2 * v for k, v in per_run.items()}     # warm-up, capture
+        name = f"{rec['form']}_conv{conv}" + ("_mods" if mods else "")
+        out[name] = dict(record=rec, launches=launches,
+                         rel_l2_graph_vs_eager=err)
+        print(f"  bench {name}: {rec['value']} img/s ({total} images a "
+              f"dispatch), graph vs eager {err:.3e}, launches {launches}"
+              + (f", traced {traced}" if traced else ""), flush=True)
+        if (got != want or not finite or err > BENCH_GRAPH_TOL
+                or rec["conv"] != conv or rec["quant"] != quant
+                or rec["mods"] != mods or rec["value"] <= 0):
+            raise AssertionError(f"bench {name}: launches {got} != {want}, "
+                                 f"graph vs eager {err:.3e}, line {rec}")
+        if ({k: traced[k] for k in want_traced} != want_traced
+                or (rec["mfu_vs_int8_peak"] is None) == bool(quant)):
+            raise AssertionError(f"bench {name}: traced {traced} != "
+                                 f"{want_traced}, {rec}")
+        if default:
+            default_launches, default_traced = launches, traced
+            if rec["form"] != "unfused_int8_static":
+                raise AssertionError(f"bench default form: {rec}")
+    del net
+    torch.cuda.empty_cache()
+    phase("bench_forms", t0, forms={k: dict(
+        img_per_s=v["record"]["value"], busy=v["record"]["busy"],
+        rel_l2_graph_vs_eager=v["rel_l2_graph_vs_eager"])
+        for k, v in out.items()}, tol=BENCH_GRAPH_TOL)
+    return default_launches, default_traced, out
+
+
+def phase_conv_model():
+    """``apps.bench_conv --model`` at the VE config, reduced: one forward a
+    run, 2 runs a route."""
+    from naturaldiffusion_tpu_torch.apps import bench_conv
+
+    t0 = time.perf_counter()
+    row = bench_conv.bench_model(VE_CONFIG, batch=2, reps=1, runs=2)
+    print("  " + json.dumps(row), flush=True)
+    bad = [k for k in row if k.endswith("_error")] + [
+        label for label, _, _ in bench_conv.MODEL_MODES
+        if not row.get(f"{label}_ms", 0) > 0]
+    if bad:
+        raise AssertionError(f"bench_conv --model: {bad}: {row}")
+    phase("conv_model", t0, **row)
+    return row
 
 
 # ------------------------------------------------------------------ DiT path
@@ -2384,12 +2823,17 @@ def main(argv=None) -> int:
     details = {}
     model_bf16 = copy.deepcopy(model).to(device="cuda", dtype=torch.bfloat16)
     kernels, n_plain, n_gn, n_k6 = phase_kernels(model_bf16, details)
+    int8_entry, n_int8 = phase_int8_kernels(model_bf16, details)
+    kernels.append(int8_entry)
+    routes = phase_routes(model_bf16, model, n_plain, n_gn, n_int8)
     del model_bf16
     phase_forward(model)
     launches, ips = phase_slice(model, n_plain, n_gn, n_k6, smi)
     del model
     bench_launches, bench_traced, bench_lines = phase_bench(
         n_plain, n_gn, n_k6, bench_flops)
+    int8_launches, int8_traced, form_lines = phase_bench_forms(
+        bench_flops, n_plain, n_gn, n_int8)
 
     from naturaldiffusion_tpu_torch.models.dit import DIT_CONFIGS, DiT
     dit32 = randomize_dit_(DiT(DIT_CONFIGS[DIT_MODEL], device="cuda"),
@@ -2413,6 +2857,7 @@ def main(argv=None) -> int:
     kernels += tool_kernels
     attn_launches, attn_rows = phase_attention_bench()
     dit_toy, conv_row = phase_tool_trace()
+    conv_model = phase_conv_model()
     for k in kernels:
         if k["name"] == "flash_attention":
             k["sd3_length"] = {f: k9_long[f] for f in (
@@ -2420,6 +2865,7 @@ def main(argv=None) -> int:
 
     by_path = {"cifar_slice": launches,
                "bench": bench_launches,
+               "bench_int8": int8_launches,
                "dit_slice": dit_runs["float"]["launches"],
                "dit_slice_w8": dit_runs["w8"]["launches"],
                "ve_slice": ve_launches,
@@ -2427,8 +2873,10 @@ def main(argv=None) -> int:
                "fused_act": k8_launches}
     # each kernel's count from the path that exercises it: K1-K3 the
     # CIFAR slice, K9 the DiT slice, K7 the DiT slice under w8, K4 (serving
-    # K5) and K6 the VE slice, K10 the attention bench, K8 its own path
+    # K5) and K6 the VE slice, K10 the attention bench, K8 its own path, the
+    # int8 conv the bench in its default form (bench.py's, unfused int8)
     main_path = {"weighted_sum": ("cifar_slice", "fused_weighted_sum"),
+                 "conv3x3_int8": ("bench_int8", "conv3x3_int8"),
                  "conv3x3": ("cifar_slice", "conv3x3"),
                  "conv3x3_gn": ("cifar_slice", "conv3x3_gn"),
                  "flash_attention": ("dit_slice", "flash_attention"),
@@ -2443,16 +2891,17 @@ def main(argv=None) -> int:
         k["launches"] = by_path[path][fn]
         k["launches_by_path"] = {p: c[fn] for p, c in by_path.items()
                                  if c.get(fn)}
-        if fn in bench_traced:
+        traced = int8_traced if path == "bench_int8" else bench_traced
+        if traced.get(fn):
             k["bench_trace_launches"] = dict(
-                replays=BENCH_CHUNKS_TRACED, launches=bench_traced[fn])
+                replays=BENCH_CHUNKS_TRACED, launches=traced[fn])
         if not k["launches"]:
             raise AssertionError(f"{k['name']} was not launched on {path}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path")
     extras = ("also_replaces", "served_by", "head_dims_checked",
-              "bench_trace_launches",
+              "bench_trace_launches", "library_int_mm_ms", "ms_dynamic",
               "lse_max_abs_err", "sd3_length", "note")
     kernels = [dict({k: kern[k] for k in keys},
                     **{k: kern[k] for k in extras if k in kern})
@@ -2460,7 +2909,8 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(dict(card=smi, img_per_s=ips, dit=dit_runs,
-                           bench=bench_lines,
+                           bench=bench_lines, bench_forms=form_lines,
+                           routes=routes, bench_conv_model=conv_model,
                            attention_bench=attn_rows, bench_dit_toy=dit_toy,
                            bench_conv=conv_row, kernels=kernels,
                            details=details), fh, indent=1)

@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy helpers shared by the port's kernels
 // (conv3x3.cu, attention.cu, qmatmul.cu): shared-memory addresses,
-// ldmatrix, mma.sync m16n8k16 on bf16 with f32 accumulators, bf16x2 packing
-// and cp.async with zero fill.  Header-only; each .cu builds on its own.
+// ldmatrix, mma.sync m16n8k16 on bf16 with f32 accumulators and m16n8k32
+// on s8 with s32 ones, bf16x2 packing and cp.async with zero fill.
+// Header-only; each .cu builds on its own (conv3x3_int8.cu too).
 
 #pragma once
 
@@ -43,6 +44,18 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b for one 16x8x32 int8 tile: a row-major (4 regs of 4 s8: rows
+// g and g+8, k 4t..4t+3 and 16+4t..), b column-major (2 regs: column g, k
+// 4t..4t+3 and 16+4t..), c s32 (4 regs: rows g and g+8, columns 2t, 2t+1)
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -19,6 +19,10 @@ as the card runs them.  :class:`GraphedNI` captures one run of
   is the capture stream inside ``torch.cuda.graph``.
 * The kernels' launch counters are Python-side.  They count once at the
   capture, never at a replay.
+* Whatever the model caches outside the graph is read from the cache's
+  memory at each replay: the int8 weights of ``models.layers`` are built
+  by the warm-up and rebuilt in place by the first eager call after a
+  weight changes, so a replay sees a changed weight only after one.
 * A capture that fails raises.  Nothing falls back to the eager loop.
 """
 

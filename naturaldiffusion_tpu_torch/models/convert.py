@@ -1,7 +1,9 @@
-"""Carry the JAX package's weights (NCSN++, DiT) into the port's models."""
+"""Carry the JAX package's weights (NCSN++, DiT) into the port's models,
+or fill them from a seed."""
 
 from __future__ import annotations
 
+import math
 from collections.abc import Mapping
 
 import numpy as np
@@ -54,4 +56,25 @@ def load_jax_params(model, params, dtype: torch.dtype | None = None):
                 raise ValueError(f"{name}: JAX shape {a.shape} != port "
                                  f"shape {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.ascontiguousarray(a, np.float32)))
+    return model
+
+
+def randomize_(model, seed: int):
+    """Every parameter of ``model`` random from ``seed``, in place, none
+    zero: GroupNorm scales ``1 + 0.1 N(0, 1)``, biases ``0.1 N(0, 1)``,
+    other weights ``N(0, 1 / fan_in)``.  The JAX init zeroes the residual
+    and head convs, which would hide a wrong conv from a check or a bench.
+    Returns the model."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "scale":
+                v = 1.0 + 0.1 * torch.randn(p.shape, generator=g)
+            elif leaf in ("bias", "b"):
+                v = 0.1 * torch.randn(p.shape, generator=g)
+            else:
+                v = torch.randn(p.shape, generator=g) / math.sqrt(
+                    math.prod(p.shape[:-1]))
+            p.copy_(v)
     return model

@@ -1,5 +1,5 @@
 """Building blocks of the NCSN++ UNet in PyTorch, NHWC (port of
-``naturaldiffusion_tpu/models/layers.py``, without ``ResnetBlockDDPMpp``).
+``naturaldiffusion_tpu/models/layers.py``).
 
 Parameters keep the JAX package's names and layouts (``kernel`` [in, out] or
 [kh, kw, in, out], ``bias``, ``scale``, ``W``, ``b``, ``weight``) and
@@ -7,16 +7,29 @@ submodules keep its names (``GroupNorm_0``, ``Conv_0``, ``NIN_1``,
 ``Conv2d_0``, ...), so carrying the JAX weights across is a tree walk
 (:mod:`.convert`).
 
-Every 3x3 stride-1 conv goes through a hand-written kernel on the card:
-the fused resblock convs through K3 (``ops.conv3x3.conv3x3_gn``), the large
-maps that the JAX package sends to its halo-tiled kernels through K4
-(``conv3x3_tiled``), the others through K2 (``conv3x3``).  Every standalone
-GroupNorm goes through K6 (``ops.group_norm.fused_group_norm``).  The 1x1
-convs, ``Dense``, ``NIN``, the attention products, the FIR resampling and
-the FIR convs stay plain PyTorch, as the JAX package leaves them to XLA.
-Each BigGAN resblock takes the form the JAX package gives it under
-``NATDIFF_PALLAS_CONV=2`` (``layers.py:457-537``): fused, fused after the
-resampling, or unfused; dropout is the identity (inference only).
+Every 3x3 stride-1 conv (``PConv3x3``) takes the JAX package's order of
+routes, read per call from the same environment (``ops.conv3x3``,
+``ops.quant``): the fused resblock conv (kernel K3,
+``ops.conv3x3.conv3x3_gn``); under a ``NATDIFF_QUANT`` int8 mode with
+both channel counts multiples of 128 the int8 conv (``ops.quant.
+conv3x3_int8``, a hand-written kernel on the card); under
+``NATDIFF_PALLAS_CONV`` ``1`` or ``2`` (the port's default) kernel K4
+(``conv3x3_tiled``) on the large maps where JAX leaves its whole-image
+kernel for the halo-tiled one, else K2 (``conv3x3``, also the 3-channel
+stem and head, which JAX leaves to XLA); under ``0`` the library conv
+(``conv3x3_library``, cuDNN), as JAX's ``conv3x3_xla``.  The 1x1 convs and
+``NIN`` are plain products, or int8 ones (``conv1x1_int8``) under
+``int8_all``/``int8_all_static``.  Each int8 weight is quantized once
+per state of its parameter (its storage, type, version and the
+activations' type) and kept beside it, rebuilt in place when the
+parameter changes, so a CUDA graph captured over it reads the new values
+after one eager call.  Every standalone GroupNorm goes through K6
+(``ops.group_norm.fused_group_norm``) under every switch: the JAX
+package's ``NATDIFF_PALLAS_GN`` is not ported.  Attention products, FIR
+resampling and the FIR convs stay plain PyTorch, as the JAX package
+leaves them to XLA.  Each resblock (BigGAN and DDPM) takes the form the
+JAX package gives it (fused, fused after the resampling, or unfused);
+dropout is the identity (inference only).
 """
 
 from __future__ import annotations
@@ -29,9 +42,36 @@ from torch import nn
 
 from ..ops import conv3x3 as convops
 from ..ops import group_norm as gnops
+from ..ops import quant as qops
 from ..ops import upfirdn2d as firops
 
-_LATER = "is not ported yet (ROADMAP.md, Queue A, item 6: NCSN++ options)"
+
+def int8_weight(mod: nn.Module, param: torch.Tensor, dt: torch.dtype, make):
+    """``make(param cast to dt)`` (the quantized weight's tensors), made
+    once per state of ``param`` and kept on ``mod``: remade when the
+    parameter's storage, type, device, version (an in-place change:
+    ``load_jax_params``, ``randomize_``) or the activations' type ``dt``
+    changes, into the same tensors where the shapes allow, so a CUDA graph
+    that captured them reads the new values."""
+    ver = None if param.is_inference() else param._version
+    key = (param.data_ptr(), param.dtype, param.device, ver, dt)
+    held = mod._q8
+    if held is not None and held[0] == key:
+        return held[1]
+    with torch.no_grad():
+        new = make(param.detach().to(dt))
+        if held is not None and all(
+                (a.shape, a.dtype, a.device) == (b.shape, b.dtype, b.device)
+                for a, b in zip(held[1], new)):
+            for a, b in zip(held[1], new):
+                a.copy_(b)
+            new = held[1]
+    mod._q8 = (key, new)
+    return new
+
+
+def _act_amax(qmode):
+    return qops.static_amax() if qmode in qops.STATIC_MODES else None
 
 
 def variance_scaling_(t: torch.Tensor, scale: float,
@@ -104,29 +144,49 @@ class NIN(nn.Module):
         self.W = nn.Parameter(torch.empty(in_dim, num_units))
         self.b = nn.Parameter(torch.zeros(num_units))
         self.init_scale = init_scale
+        self._q8 = None
 
     def reset_parameters(self, generator):
         variance_scaling_(self.W, self.init_scale, generator)
 
     def forward(self, x):
+        qmode = qops.quant_enabled()
+        if (qmode in qops.WIDE_MODES and self.W.shape[0] % 128 == 0
+                and self.W.shape[1] % 128 == 0):
+            return qops.conv1x1_int8(
+                x, None, self.b, act_amax=_act_amax(qmode),
+                w_q=int8_weight(self, self.W, x.dtype,
+                                qops.quantize_nin_weight))
         return x @ self.W + self.b
 
 
 class PConv3x3(nn.Module):
-    """3x3 / stride-1 / SAME conv, kernel [3,3,in,out].  With ``pre``,
-    ``skip`` or ``emit_stats`` it is the fused resblock conv (kernel K3);
-    else, on a map where the JAX package leaves its whole-image kernel for
-    the halo-tiled one (``ops.conv3x3.large_map``), kernel K4; else kernel
-    K2."""
+    """3x3 / stride-1 / SAME conv, kernel [3,3,in,out], routed as the JAX
+    package's ``PConv3x3`` (``layers.py:100-142``; see the module
+    docstring): with ``pre``, ``skip`` or ``emit_stats`` the fused
+    resblock conv (K3); else the int8 conv under an int8 mode where both
+    channel counts are multiples of 128; else K4 or K2 under
+    ``NATDIFF_PALLAS_CONV`` ``1``/``2``; else the library conv."""
 
     def __init__(self, in_ch: int, out_ch: int, init_scale: float = 1.0):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(3, 3, in_ch, out_ch))
         self.bias = nn.Parameter(torch.zeros(out_ch))
         self.init_scale = init_scale
+        self._q8 = None
 
     def reset_parameters(self, generator):
         variance_scaling_(self.kernel, self.init_scale, generator)
+
+    def route(self, x) -> str:
+        """The implementation an unfused call on ``x`` takes: ``"int8"``,
+        ``"K4"``, ``"K2"`` or ``"library"``."""
+        cin, cout = x.shape[-1], self.kernel.shape[3]
+        if qops.quant_enabled() and cin % 128 == 0 and cout % 128 == 0:
+            return "int8"
+        if convops.pallas_conv_enabled():
+            return "K4" if convops.large_map(x, cout) else "K2"
+        return "library"
 
     def forward(self, x, *, pre=None, skip=None, skip_rescale=False,
                 emit_stats=False):
@@ -134,23 +194,42 @@ class PConv3x3(nn.Module):
             return convops.conv3x3_gn(x, self.kernel, self.bias, pre=pre,
                                       skip=skip, skip_rescale=skip_rescale,
                                       emit_stats=emit_stats)
-        if convops.large_map(x, self.kernel.shape[3]):
+        route = self.route(x)
+        if route == "int8":
+            w_i8, s_w, w_kern = int8_weight(self, self.kernel, x.dtype,
+                                            qops.quantize_conv_weight)
+            return qops.conv3x3_int8(
+                x, None, self.bias.to(x.dtype), w_i8=w_i8, s_w=s_w,
+                w_kern=w_kern, act_amax=_act_amax(qops.quant_enabled()))
+        if route == "K4":
             return convops.conv3x3_tiled(x, self.kernel, self.bias)
-        return convops.conv3x3(x, self.kernel, self.bias)
+        if route == "K2":
+            return convops.conv3x3(x, self.kernel, self.bias)
+        return convops.conv3x3_library(x, self.kernel, self.bias)
 
 
 class PConv1x1(nn.Module):
-    """1x1 / stride-1 conv, kernel [1,1,in,out], as one matrix product."""
+    """1x1 / stride-1 conv, kernel [1,1,in,out], as one matrix product, or
+    an int8 one under ``int8_all``/``int8_all_static`` where both channel
+    counts are multiples of 128 (JAX ``layers.py:156-182``)."""
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(1, 1, in_ch, out_ch))
         self.bias = nn.Parameter(torch.zeros(out_ch))
+        self._q8 = None
 
     def reset_parameters(self, generator):
         variance_scaling_(self.kernel, 1.0, generator)
 
     def forward(self, x):
+        qmode = qops.quant_enabled()
+        cin, cout = self.kernel.shape[2:]
+        if qmode in qops.WIDE_MODES and cin % 128 == 0 and cout % 128 == 0:
+            return qops.conv1x1_int8(
+                x, None, self.bias.to(x.dtype), act_amax=_act_amax(qmode),
+                w_q=int8_weight(self, self.kernel, x.dtype,
+                                qops.quantize_nin_weight))
         return x @ self.kernel[0, 0] + self.bias
 
 
@@ -350,12 +429,14 @@ class ResnetBlockBigGANpp(nn.Module):
     * ``"resample_fused"``: the resample sits between GN_0's SiLU and
       Conv_0, so GN_0 runs standalone (K6) and Conv_0 only emits the sums;
     * ``"unfused"``: GN_0 (K6), resample, Conv_0, GN_1 with the temb
-      projection as its extra bias (K6), Conv_1 (K2, or K4 on a large map),
-      then the skip-add.
+      projection as its extra bias (K6), Conv_1 (each conv routed by
+      ``PConv3x3``), then the skip-add.
 
     In both fused forms the temb projection enters GN_1's affine
     algebraically, GN_1 + SiLU ride Conv_1's prologue, and the skip-add
-    (+1/sqrt2) is Conv_1's epilogue."""
+    (+1/sqrt2) is Conv_1's epilogue.  ``tb``: the block's temb projection
+    given from outside (``ncsnpp_schedule_biases``), in place of
+    ``Dense_0(silu(temb))``."""
 
     def __init__(self, in_ch: int, out_ch: int | None = None,
                  temb_dim: int | None = None, up: bool = False,
@@ -399,9 +480,10 @@ class ResnetBlockBigGANpp(nn.Module):
                     if self.fir else avg_pool2x2(x))
         return x
 
-    def forward(self, x, temb=None):
+    def forward(self, x, temb=None, tb=None):
         form = self.route(x)
-        tb = self.Dense_0(F.silu(temb)) if temb is not None else None
+        if tb is None and temb is not None:
+            tb = self.Dense_0(F.silu(temb))
         if form == "unfused":
             h = self._resample(self.GroupNorm_0(x))
             x = self._resample(x)
@@ -422,3 +504,67 @@ class ResnetBlockBigGANpp(nn.Module):
         w1, b1 = self.GroupNorm_1.coeffs(h, extra_bias=tb, stats=(s1, s2))
         return self.Conv_1(h, pre=(w1, b1), skip=xs.to(h.dtype),
                            skip_rescale=self.skip_rescale)
+
+
+class ResnetBlockDDPMpp(nn.Module):
+    """DDPM++ residual block (``layerspp.py:162-206``; JAX
+    ``layers.py:391-437``) in the two forms the JAX package routes between
+    (:meth:`route`):
+
+    * ``"fused"`` (``NATDIFF_PALLAS_CONV=2`` and the JAX gate): GN_0
+      collapses to coefficients on Conv_0's prologue, and Conv_0 emits
+      GN_1's channel sums (K3); the shortcut (``NIN_0``, or ``Conv_2`` with
+      ``conv_shortcut``) where the channel count changes; GN_1 with the
+      temb projection on Conv_1's prologue and the skip-add (+1/sqrt2) in
+      its epilogue (K3);
+    * ``"unfused"``: GN_0 + SiLU (K6), Conv_0, GN_1 + SiLU with the temb
+      projection as its extra bias (K6), Conv_1, the shortcut, the add.
+
+    ``tb`` as in :class:`ResnetBlockBigGANpp`."""
+
+    def __init__(self, in_ch: int, out_ch: int | None = None,
+                 temb_dim: int | None = None, conv_shortcut: bool = False,
+                 skip_rescale: bool = False, init_scale: float = 0.0):
+        super().__init__()
+        out_ch = out_ch or in_ch
+        self.out_ch = out_ch
+        self.skip_rescale = skip_rescale
+        self.GroupNorm_0 = GroupNorm(in_ch, act="silu")
+        self.Conv_0 = PConv3x3(in_ch, out_ch)
+        if temb_dim is not None:
+            self.Dense_0 = Dense(temb_dim, out_ch)
+        self.GroupNorm_1 = GroupNorm(out_ch, act="silu")
+        self.Conv_1 = PConv3x3(out_ch, out_ch, init_scale=init_scale)
+        if in_ch != out_ch:
+            if conv_shortcut:
+                self.Conv_2 = PConv3x3(in_ch, out_ch)
+            else:
+                self.NIN_0 = NIN(in_ch, out_ch)
+
+    def route(self, x) -> str:
+        """The JAX package's gate (``layers.py:409``): ``"fused"`` or
+        ``"unfused"``."""
+        return ("fused" if convops.fused_resblock_ok(x, self.out_ch)
+                else "unfused")
+
+    def _shortcut(self, x):
+        if hasattr(self, "Conv_2"):
+            return self.Conv_2(x)
+        if hasattr(self, "NIN_0"):
+            return self.NIN_0(x)
+        return x
+
+    def forward(self, x, temb=None, tb=None):
+        if tb is None and temb is not None:
+            tb = self.Dense_0(F.silu(temb))
+        if self.route(x) == "fused":
+            w0, b0 = self.GroupNorm_0.coeffs(x)
+            h, s1, s2 = self.Conv_0(x, pre=(w0, b0), emit_stats=True)
+            xs = self._shortcut(x)
+            w1, b1 = self.GroupNorm_1.coeffs(h, extra_bias=tb, stats=(s1, s2))
+            return self.Conv_1(h, pre=(w1, b1), skip=xs.to(h.dtype),
+                               skip_rescale=self.skip_rescale)
+        h = self.Conv_0(self.GroupNorm_0(x))
+        h = self.Conv_1(self.GroupNorm_1(h, extra_bias=tb))
+        out = self._shortcut(x) + h
+        return out / math.sqrt(2.0) if self.skip_rescale else out

@@ -7,13 +7,14 @@ running index; the JAX package names the walk's modules ``m{i}``, and so does
 this port (an ``nn.ModuleDict`` keyed ``m{i}``), so the JAX weights map onto
 it by name (:func:`.convert.load_jax_params`).
 
-Ported: BigGAN resblocks with or without FIR, the progressive output paths
-(``output_skip``, ``residual``) and input paths (``input_skip``,
-``residual``) with ``progressive_combine`` sum or cat, the Fourier and the
-positional embedding, conditional or not, ``scale_by_sigma`` and
-``centered``.  ``ResnetBlockDDPMpp`` raises ``NotImplementedError``.  The
-JAX config's ``dropout`` (inference only here) and ``num_train_timesteps``
-(never read by the model) are left out.
+Ported: BigGAN and DDPM++ resblocks (``resblock_type``), with or without
+FIR, the progressive output paths (``output_skip``, ``residual``) and
+input paths (``input_skip``, ``residual``) with ``progressive_combine``
+sum or cat, the Fourier and the positional embedding, conditional or not,
+``scale_by_sigma`` and ``centered``; ``forward(..., mods=)`` with the
+hoisted conditioning of :func:`ncsnpp_schedule_biases`.  The JAX config's
+``dropout`` (inference only here) and ``num_train_timesteps`` (never read
+by the model) are left out.
 """
 
 from __future__ import annotations
@@ -66,11 +67,8 @@ CIFAR10_NCSNPP_CONTINUOUS = NCSNppConfig(
 
 
 def _check_supported(cfg: NCSNppConfig, sigmas) -> None:
-    if cfg.resblock_type != "biggan":
-        raise NotImplementedError(
-            f"ResnetBlockDDPMpp (resblock_type={cfg.resblock_type!r}) "
-            f"{L._LATER}")
-    for field, allowed in (("progressive", ("none", "output_skip",
+    for field, allowed in (("resblock_type", ("biggan", "ddpm")),
+                           ("progressive", ("none", "output_skip",
                                             "residual")),
                            ("progressive_input", ("none", "input_skip",
                                                   "residual")),
@@ -127,11 +125,31 @@ class NCSNpp(nn.Module):
         fir = dict(fir=cfg.fir, fir_kernel=tuple(cfg.fir_kernel))
         mods: list[nn.Module] = []
 
+        ddpm = cfg.resblock_type == "ddpm"
+
         def res(in_ch, out_ch=None, **kw):
+            if ddpm:
+                mods.append(L.ResnetBlockDDPMpp(
+                    in_ch, out_ch, temb_dim=temb_dim,
+                    skip_rescale=cfg.skip_rescale,
+                    init_scale=cfg.init_scale))
+                return
             mods.append(L.ResnetBlockBigGANpp(
                 in_ch, out_ch, temb_dim=temb_dim,
                 skip_rescale=cfg.skip_rescale, init_scale=cfg.init_scale,
                 **fir, **kw))
+
+        def resample(ch, up):
+            # the DDPM++ walk resamples between blocks (JAX ``ncsnpp.py:185,
+            # 255``), the BigGAN walk inside a block
+            if not ddpm:
+                res(ch, up=up, down=not up)
+            elif up:
+                mods.append(L.Upsample(ch, with_conv=cfg.resamp_with_conv,
+                                       **fir))
+            else:
+                mods.append(L.Downsample(ch, with_conv=cfg.resamp_with_conv,
+                                         **fir))
 
         def attn(ch):
             mods.append(L.AttnBlockpp(ch, skip_rescale=cfg.skip_rescale,
@@ -153,7 +171,7 @@ class NCSNpp(nn.Module):
                     attn(in_ch)
                 hs_ch.append(in_ch)
             if i_level != len(cfg.ch_mult) - 1:
-                res(in_ch, down=True)
+                resample(in_ch, up=False)
                 res_now //= 2
                 if cfg.progressive_input == "input_skip":
                     mods.append(L.Combine(nc, in_ch,
@@ -194,7 +212,7 @@ class NCSNpp(nn.Module):
                                            .resamp_with_conv, **fir))
                     pyr_ch = in_ch
             if i_level != 0:
-                res(in_ch, up=True)
+                resample(in_ch, up=True)
                 res_now *= 2
         if cfg.progressive != "output_skip":
             mods.append(L.GroupNorm(in_ch, act="silu"))
@@ -207,19 +225,41 @@ class NCSNpp(nn.Module):
                 m.reset_parameters(gen)
         self.to(dev)
 
-    def forward(self, x, time_cond):
+    def forward(self, x, time_cond, mods=None):
+        """``mods``: one step's slice of :func:`ncsnpp_schedule_biases`
+        (``{resblock name: [1, C]}``); when given, the embedding chain and
+        every resblock's ``Dense_0`` are skipped (``time_cond`` is then read
+        only for ``scale_by_sigma``), as the JAX package's ``mods=``."""
         cfg = self.config
-        it = iter(self.layers.values())
+        items = iter(self.layers.items())
+        it = (m for _, m in items)
         nlev = len(cfg.ch_mult)
+        ddpm = cfg.resblock_type == "ddpm"
+
+        def res(h, temb):
+            name, m = next(items)
+            return m(h, temb, tb=None if mods is None else mods[name])
+
+        def resample(h, temb):
+            return next(it)(h) if ddpm else res(h, temb)
+
         used_sigmas = None
+        if mods is not None and not cfg.conditional:
+            raise ValueError("mods= requires a conditional model")
         if cfg.embedding_type == "fourier":
             used_sigmas = time_cond
-            temb = next(it)(torch.log(used_sigmas))
+            proj = next(it)
+            if mods is None:
+                temb = proj(torch.log(used_sigmas))
         else:
-            temb = L.get_timestep_embedding(time_cond, cfg.nf)
+            if mods is None:
+                temb = L.get_timestep_embedding(time_cond, cfg.nf)
             if self.sigmas is not None:
                 used_sigmas = self.sigmas.to(x.dtype)[time_cond.long()]
-        if cfg.conditional:
+        if mods is not None:
+            next(it), next(it)           # the embedder's two Dense
+            temb = None
+        elif cfg.conditional:
             # keep the caller's activation type: the embedding is f32
             temb = next(it)(temb.to(x.dtype))
             temb = next(it)(F.silu(temb))
@@ -232,12 +272,12 @@ class NCSNpp(nn.Module):
         hs = [next(it)(x)]
         for i_level in range(nlev):
             for _ in range(cfg.num_res_blocks):
-                h = next(it)(hs[-1], temb)
+                h = res(hs[-1], temb)
                 if h.shape[1] in cfg.attn_resolutions:
                     h = next(it)(h)
                 hs.append(h)
             if i_level != nlev - 1:
-                h = next(it)(hs[-1], temb)
+                h = resample(hs[-1], temb)
                 if cfg.progressive_input == "input_skip":
                     input_pyramid = _plain_down(input_pyramid, cfg)
                     h = next(it)(input_pyramid, h)
@@ -248,14 +288,14 @@ class NCSNpp(nn.Module):
                     h = input_pyramid
                 hs.append(h)
 
-        h = next(it)(hs[-1], temb)
+        h = res(hs[-1], temb)
         h = next(it)(h)
-        h = next(it)(h, temb)
+        h = res(h, temb)
 
         pyramid = None
         for i_level in reversed(range(nlev)):
             for _ in range(cfg.num_res_blocks + 1):
-                h = next(it)(torch.cat([h, hs.pop()], dim=-1), temb)
+                h = res(torch.cat([h, hs.pop()], dim=-1), temb)
             if h.shape[1] in cfg.attn_resolutions:
                 h = next(it)(h)
             if cfg.progressive != "none":
@@ -271,7 +311,7 @@ class NCSNpp(nn.Module):
                         pyramid = pyramid / math.sqrt(2.0)
                     h = pyramid
             if i_level != 0:
-                h = next(it)(h, temb)
+                h = resample(h, temb)
 
         if cfg.progressive == "output_skip":
             h = pyramid
@@ -281,3 +321,33 @@ class NCSNpp(nn.Module):
         if cfg.scale_by_sigma:
             h = h / used_sigmas.reshape(-1, 1, 1, 1)
         return h
+
+
+@torch.no_grad()
+def ncsnpp_schedule_biases(model: NCSNpp, t_all, dtype=None):
+    """Every resblock's temb projection at each of the schedule's times,
+    computed once (JAX ``ncsnpp.py:274-316``): under a static NI schedule
+    the timestep is one scalar for the whole batch at each step, so the
+    embedding chain and each ``Dense_0`` are loop constants.  Runs the
+    model's own modules on ``t_all`` [S] (the schedule's times, e.g.
+    ``sched.node[:, 0]``), in ``dtype`` (default: the embedder's weight
+    type, as the forward casts to x's type).  Returns ``{resblock name:
+    [S, 1, C]}`` for the engine's ``step_inputs=``; step k's ``[1, C]``
+    slice broadcasts over the batch through GN_1's extra bias."""
+    cfg = model.config
+    if not cfg.conditional:
+        raise ValueError("schedule-bias hoist requires a conditional model")
+    layers = model.layers
+    t_all = torch.as_tensor(t_all, dtype=torch.float32,
+                            device=next(model.parameters()).device)
+    if cfg.embedding_type == "fourier":
+        temb = layers["m0"](torch.log(t_all))
+        d0 = 1
+    else:
+        temb = L.get_timestep_embedding(t_all, cfg.nf)
+        d0 = 0
+    dtype = dtype or layers[f"m{d0}"].kernel.dtype
+    temb = layers[f"m{d0}"](temb.to(dtype))
+    sa = F.silu(layers[f"m{d0 + 1}"](F.silu(temb)))
+    return {name: m.Dense_0(sa)[:, None, :] for name, m in layers.items()
+            if hasattr(m, "Dense_0")}

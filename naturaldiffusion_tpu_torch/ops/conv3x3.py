@@ -22,6 +22,24 @@ then the conv runs on float32 copies of the operands.  In bfloat16 every
 call runs one tensor-core kernel whose tiles :func:`_tile_plan` chooses
 here; float32 runs the SIMT kernels.
 
+* :func:`conv3x3_library` — the same function as :func:`conv3x3` by one
+  ``F.conv2d`` on channels-last views in the input's type (cuDNN on the
+  card), the counterpart of the JAX package's ``conv3x3_xla`` (``:885``):
+  the route of every non-int8 3x3 conv under ``NATDIFF_PALLAS_CONV=0``.
+
+The route switch is the JAX package's (``:60-110``), read per call:
+:func:`pallas_conv_enabled` and :func:`fused_resblock_enabled` read
+``NATDIFF_PALLAS_CONV`` (``1``: the conv kernels; ``2``: also the fused
+resblock), :func:`default_variant` ``NATDIFF_CONV_VARIANT`` (``taps9``)
+and :func:`tiled_variant` ``NATDIFF_CONV_TILED`` (``tiled``; ``tiled`` and
+``tiledew`` both run K4).  The same variables with the same values, so
+one environment sets both packages.  One default differs: the port's
+``NATDIFF_PALLAS_CONV`` is ``2`` (its main path, the fused resblock),
+JAX's ``0``; the port bench sets JAX's (``apps/bench.py``).
+``models/layers.py:PConv3x3`` takes JAX's order: fused (K3), the int8
+conv (``ops.quant``), the kernels K2/K4 under ``1``/``2``, else
+:func:`conv3x3_library`.
+
 The route predicates :func:`fused_resblock_ok` and :func:`pallas_conv_fits`
 are the JAX package's, copied with their constants (``:76``, ``:115-198``):
 those constants describe a TPU's VMEM, and serve here only so that every
@@ -34,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import torch
 import torch.nn.functional as F
@@ -291,6 +310,50 @@ conv3x3_tiled.launches = 0
 conv3x3_gn.launches = 0
 
 
+def conv3x3_library(x, w, b=None):
+    """:func:`conv3x3`'s function by PyTorch's library: ``F.conv2d`` on the
+    NCHW views of NHWC ``x`` (channels-last, so cuDNN runs its NHWC
+    kernels on the card) in x's type, then ``+ b``, as the JAX package's
+    ``conv3x3_xla`` adds its bias after the conv.  The route of the
+    non-int8 3x3 convs under ``NATDIFF_PALLAS_CONV=0``; no kernel of this
+    package."""
+    _check(x, w, b, None, None)
+    wcl = w.to(x.dtype).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    y = F.conv2d(x.permute(0, 3, 1, 2), wcl, padding=1)
+    y = y.permute(0, 2, 3, 1).contiguous()
+    return y if b is None else y + b.to(x.dtype)
+
+
+# --- the JAX package's route switch (ops/conv3x3.py:60-110), per call -------
+def _conv_flag() -> str:
+    return os.environ.get("NATDIFF_PALLAS_CONV", "2")
+
+
+def pallas_conv_enabled() -> bool:
+    """``NATDIFF_PALLAS_CONV`` in ``1``, ``2``: the 3x3 convs run the
+    kernels K2/K4 (the port's default ``2``; JAX's default is ``0``)."""
+    return _conv_flag() in ("1", "2")
+
+
+def fused_resblock_enabled() -> bool:
+    """``NATDIFF_PALLAS_CONV == 2``: the resblocks may take the fused
+    form (kernel K3)."""
+    return _conv_flag() == "2"
+
+
+def default_variant() -> str:
+    """The whole-image formulation whose fit :func:`large_map` asks
+    (``NATDIFF_CONV_VARIANT``, ``taps9``); K2 serves each of them."""
+    return os.environ.get("NATDIFF_CONV_VARIANT", "taps9")
+
+
+def tiled_variant() -> str:
+    """The large-map formulation (``NATDIFF_CONV_TILED``, ``tiled``): the
+    port runs K4 for ``tiled`` and ``tiledew`` alike, one function."""
+    return os.environ.get("NATDIFF_CONV_TILED", "tiled")
+
+
 # --- the JAX package's route predicates (ops/conv3x3.py:76, :115-198) -------
 # per-grid-step VMEM budget of the tiled variants, and the whole-image cap
 _VMEM_BUDGET = 10 * 1024 * 1024
@@ -358,14 +421,14 @@ def pallas_conv_fits(shape, cout, itemsize, variant="valid9", *,
 
 
 def fused_resblock_ok(x, out_ch: int, *, shape=None) -> bool:
-    """The JAX gate of the fused-resblock form under
-    ``NATDIFF_PALLAS_CONV=2`` (the form the port runs where it may): both
-    channel counts multiples of 128 and the worst-case fused working set
-    within the cap.  ``shape`` overrides x's shape (the resampling blocks'
-    convs see the resampled map)."""
+    """The JAX gate of the fused-resblock form: ``NATDIFF_PALLAS_CONV=2``
+    (:func:`fused_resblock_enabled`), both channel counts multiples of 128
+    and the worst-case fused working set within the cap.  ``shape``
+    overrides x's shape (the resampling blocks' convs see the resampled
+    map)."""
     shape = tuple(shape or x.shape)
     cin = shape[-1]
-    if cin % 128 or out_ch % 128:
+    if not fused_resblock_enabled() or cin % 128 or out_ch % 128:
         return False
     worst = (shape[0], shape[1], shape[2], max(cin, out_ch))
     return pallas_conv_fits(worst, out_ch, x.dtype.itemsize, "valid9",
@@ -374,11 +437,11 @@ def fused_resblock_ok(x, out_ch: int, *, shape=None) -> bool:
 
 def large_map(x, cout: int) -> bool:
     """True where the JAX package's unfused ``PConv3x3`` leaves its
-    whole-image kernel (the default ``taps9`` variant does not fit) for the
+    whole-image kernel (:func:`default_variant` does not fit) for the
     halo-tiled one: channel counts multiples of 128 and a large map.  The
     port then runs :func:`conv3x3_tiled` (also where JAX's tiled variant
     would not fit either and JAX falls back to XLA), else :func:`conv3x3`."""
     cin = x.shape[-1]
     return (cin % 128 == 0 and cout % 128 == 0
             and not pallas_conv_fits(tuple(x.shape), cout, x.dtype.itemsize,
-                                     "taps9"))
+                                     default_variant()))

@@ -23,6 +23,8 @@ from torch.utils.flop_counter import FlopCounterMode
 
 # NVIDIA H100 SXM, dense bf16 tensor-core peak (data sheet), at 700 W
 H100_BF16_PEAK = 989e12
+# the same card's dense int8 tensor-core peak (data sheet), operations/s
+H100_INT8_PEAK = 1979e12
 
 
 def flops_counted(fn, *args, **kwargs) -> int:

@@ -55,19 +55,34 @@ class Timer:
         return statistics.median(self.times)
 
 
+# Idle seconds the profiled window keeps on the card before and after the
+# block.  A trace of CUDA-graph replays whose block ran flush against the
+# window's edges has come back without kernels of its first and last steps
+# (an H100, 5 and 22 of 2,080 launches of the port's kernels); the pad keeps
+# the block's kernels away from the edges.
+TRACE_PAD_S = 0.1
+
+
 @contextlib.contextmanager
 def trace(logdir: str):
     """``torch.profiler`` around a block (CPU activity, and the card's when
     one exists), written into ``logdir`` as a Chrome trace
-    ``<host>_<pid>.<ns>.pt.trace.json``."""
+    ``<host>_<pid>.<ns>.pt.trace.json``.  On the card the window starts
+    TRACE_PAD_S before the block and ends TRACE_PAD_S after its last
+    kernel."""
+    cuda = torch.cuda.is_available()
     acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     with torch.profiler.profile(activities=acts) as prof:
-        yield
-        if torch.cuda.is_available():
+        if cuda:
             torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
+        yield
+        if cuda:
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
     prof.export_chrome_trace(os.path.join(
         logdir, f"{socket.gethostname()}_{os.getpid()}."
                 f"{time.time_ns()}.pt.trace.json"))

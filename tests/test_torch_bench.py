@@ -1,7 +1,10 @@
 """The port bench (``naturaldiffusion_tpu_torch.apps.bench``) end to end on
 the CPU at toy scale: the JSON contract of the repository's ``bench.py``
-(``tests/test_bench_headline.py``), what it refuses, and its samples
+(``tests/test_bench_headline.py``), its forms (``BENCH_QUANT``,
+``BENCH_MODS``, ``NATDIFF_PALLAS_CONV``), what it refuses, and its samples
 against the engine fed the same inputs."""
+
+import os
 
 import json
 
@@ -19,7 +22,8 @@ TOY = dict(BENCH_TOTAL="4", BENCH_MICRO="2", BENCH_STEPS="2")
 
 @pytest.fixture
 def toy_env(monkeypatch):
-    for k in ("BENCH_QUANT", "BENCH_MODS", "BENCH_GRAPH", "BENCH_DEVICE"):
+    for k in ("BENCH_QUANT", "BENCH_MODS", "BENCH_GRAPH", "BENCH_DEVICE",
+              "NATDIFF_PALLAS_CONV", "NATDIFF_QUANT"):
         monkeypatch.delenv(k, raising=False)
     for k, v in TOY.items():
         monkeypatch.setenv(k, v)
@@ -37,7 +41,11 @@ def test_bench_main_toy(toy_env, capsys, tmp_path):
     assert rec["flops_source"].startswith("counted")
     assert rec["micro_batch"] == 2 and rec["total_batch"] == 4
     assert rec["steps"] == 2
-    assert rec["form"] == "fused_bf16" and rec["graph"] is False
+    # bench.py's form on the CPU: unfused convs (JAX's default "0"), no
+    # int8 (bench.py takes int8_static on an accelerator only)
+    assert rec["form"] == "unfused_bf16" and rec["graph"] is False
+    assert (rec["conv"], rec["quant"], rec["mods"]) == ("0", "", False)
+    assert rec["mfu_vs_int8_peak"] is None
     assert rec["card"] == "cpu" and rec["mfu"] is None
     # the CPU has no device events: the profiled dispatch reads 0 busy
     assert rec["busy"] == 0.0 and rec["traced_dispatch"]["wall_s"] > 0
@@ -54,9 +62,9 @@ def test_flops_only_counts_one_image(capsys):
 
 
 @pytest.mark.parametrize("env,err,match", [
-    ({"BENCH_QUANT": "int8_static"}, NotImplementedError, "int8"),
-    ({"BENCH_QUANT": "int8"}, NotImplementedError, "int8"),
-    ({"BENCH_MODS": "1"}, NotImplementedError, "ncsnpp_schedule_biases"),
+    ({"BENCH_QUANT": "int4"}, ValueError, "BENCH_QUANT"),
+    ({"BENCH_QUANT": "w8"}, ValueError, "BENCH_QUANT"),
+    ({"NATDIFF_PALLAS_CONV": "3"}, ValueError, "NATDIFF_PALLAS_CONV"),
     ({"BENCH_GRAPH": "1"}, ValueError, "CUDA graph"),
     ({"BENCH_MICRO": "3"}, ValueError, "must divide"),
 ])
@@ -67,14 +75,69 @@ def test_bench_refuses(toy_env, env, err, match):
         bench.main(["--device", "cpu"])
 
 
-def test_bench_refuses_a_missing_card(toy_env):
+@pytest.mark.parametrize("quant", [None, "", "int8", "int8_all",
+                                   "int8_static", "int8_all_static"])
+@pytest.mark.parametrize("mods", [None, "0", "1"])
+def test_bench_settings(toy_env, quant, mods):
+    """Every ``BENCH_QUANT`` and ``BENCH_MODS`` value parses; an unset
+    ``BENCH_QUANT`` is left to ``main`` (int8_static on a card, "" on the
+    CPU), and ``NATDIFF_PALLAS_CONV`` defaults to JAX's ``"0"``."""
+    for k, v in (("BENCH_QUANT", quant), ("BENCH_MODS", mods)):
+        if v is not None:
+            toy_env.setenv(k, v)
+    cfg = bench.settings()
+    assert cfg["quant"] == quant and cfg["mods"] == (mods == "1")
+    assert cfg["conv"] == "0"
+    toy_env.setenv("NATDIFF_PALLAS_CONV", "2")
+    assert bench.settings()["conv"] == "2"
+    assert bench.form_name("0", quant or "") == f"unfused_{quant or 'bf16'}"
+    assert bench.form_name("2", "") == "fused_bf16"
+
+
+def test_bench_refuses_a_missing_card(toy_env, capsys):
+    """Without a card the bench raises unless asked for the CPU; there
+    (``BENCH_DEVICE``) it runs a quantized, hoisted form: one 2-image chunk
+    of one step under ``int8_static`` and ``BENCH_MODS=1``, the int8 convs
+    through their plain versions."""
     toy_env.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bench.main([])
-    toy_env.setenv("BENCH_DEVICE", "cpu")        # the env's way onto the CPU
-    with pytest.raises(NotImplementedError, match="int8"):
-        toy_env.setenv("BENCH_QUANT", "int8_static")
-        bench.main([])
+    for k, v in (("BENCH_DEVICE", "cpu"), ("BENCH_QUANT", "int8_static"),
+                 ("BENCH_MODS", "1"), ("BENCH_TOTAL", "2"),
+                 ("BENCH_STEPS", "1")):
+        toy_env.setenv(k, v)
+    assert bench.main([]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["form"] == "unfused_int8_static" and rec["mods"] is True
+    assert rec["quant"] == "int8_static" and rec["conv"] == "0"
+    assert rec["value"] > 0 and rec["card"] == "cpu"
+    assert "NATDIFF_QUANT" not in os.environ       # restored after the run
+
+
+def test_bench_form_env_is_scoped(toy_env):
+    """The form's variables hold inside a forward only: the int8 convs run
+    there (their plain versions on the CPU), and the caller's environment
+    is unchanged after."""
+    from naturaldiffusion_tpu_torch.ops import quant as Q
+    toy_env.setenv("NATDIFF_QUANT", "w8")
+    seen = []
+    orig = Q.conv3x3_int8
+
+    def rec(*a, **k):
+        seen.append((os.environ["NATDIFF_QUANT"], k.get("act_amax")))
+        return orig(*a, **k)
+
+    toy_env.setattr(Q, "conv3x3_int8", rec)
+    b = bench.Bench(micro=1, total=1, steps=1, device="cpu", graph=False,
+                    conv="0", quant="int8", mods=True)
+    assert b.form == "unfused_int8" and "step_inputs" in b.kwargs
+    assert sorted(b.mods) == sorted(
+        k for k, m in b.net.layers.items() if hasattr(m, "Dense_0"))
+    out = b.chunk(0, torch.Generator().manual_seed(3))
+    assert torch.isfinite(out).all()
+    assert len(seen) == 88 and set(seen) == {("int8", None)}
+    assert os.environ["NATDIFF_QUANT"] == "w8"
+    assert os.environ.get("NATDIFF_PALLAS_CONV") is None
 
 
 def test_chunk_equals_natural_inference():

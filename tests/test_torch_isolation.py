@@ -89,6 +89,17 @@ with tempfile.TemporaryDirectory() as d:
     assert trace_summary.summarize(d)[0] == 0
 from naturaldiffusion_tpu_torch.apps import bench
 from naturaldiffusion_tpu_torch.engine import graph
+from naturaldiffusion_tpu_torch.ops.quant import conv1x1_int8, conv3x3_int8
+from naturaldiffusion_tpu_torch.models.ncsnpp import ncsnpp_schedule_biases
+xq = torch.randn(1, 4, 4, 128)
+assert torch.isfinite(conv3x3_int8(xq, torch.randn(3, 3, 128, 128),
+                                   act_amax=6.0)).all()
+assert torch.isfinite(conv1x1_int8(xq, torch.randn(128, 128))).all()
+dd = NCSNpp(NCSNppConfig(**dict({SMALL!r}, resblock_type="ddpm")),
+            device="cpu")
+hoisted = ncsnpp_schedule_biases(dd, torch.tensor([10.0]))
+assert torch.isfinite(dd(torch.randn(1, 8, 8, 3), torch.tensor([10.0]),
+                         mods={{k: v[0] for k, v in hoisted.items()}})).all()
 import numpy as np
 for name in ("deis_tab", "dpmsolver3s", "flow_euler", "ode_heun"):
     m = registry.derive(name, 4)

@@ -98,9 +98,18 @@ def test_walk_matches_the_jax_names(pair):
 
 @pytest.mark.parametrize("field,value", [("resblock_type", "ddpm")])
 def test_unported_options_raise(field, value):
-    cfg = NCSNppConfig(**dict(SMALL, **{field: value}))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        NCSNpp(cfg, device="cpu")
+    """No option value of the JAX package is left unported: ``ddpm``, which
+    raised ``NotImplementedError`` before ``ResnetBlockDDPMpp`` was ported,
+    builds the DDPM++ walk (checked against JAX in
+    ``test_torch_ncsnpp_forms.py``); a value neither package knows raises
+    ``ValueError``."""
+    model = NCSNpp(NCSNppConfig(**dict(SMALL, **{field: value})),
+                   device="cpu")
+    assert any(isinstance(m, L.ResnetBlockDDPMpp)
+               for m in model.layers.values())
+    with pytest.raises(ValueError, match=field):
+        NCSNpp(NCSNppConfig(**dict(SMALL, **{field: value + "x"})),
+               device="cpu")
 
 
 @pytest.mark.parametrize("field,value", [

@@ -179,8 +179,35 @@ def test_bench_conv_prints_the_jax_apps_keys(capsys):
     assert variants == {v for vs in row["serves"].values() for v in vs}
     assert row["best_variant"] in row["serves"]
     assert row["pallas_ms"] == row[f"{row['best_variant']}_ms"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bench_conv.main(["--model", "ve/celebahq_256_ncsnpp_continuous"])
+
+
+def test_bench_conv_model_prints_the_jax_apps_keys(capsys, monkeypatch):
+    """``bench_conv --model``: one forward per route of the conv switch, the
+    JAX app's labels (read from its source) and keys, on a small VE config
+    on the CPU; the caller's switches restored after."""
+    import dataclasses
+    from naturaldiffusion_tpu_torch import configs
+    name = "ve/celebahq_256_ncsnpp_continuous"
+    cfg = configs.get_config(name)
+    small = dataclasses.replace(cfg.model, image_size=16, nf=16,
+                                ch_mult=(1, 2), num_res_blocks=1,
+                                attn_resolutions=(8,))
+    monkeypatch.setattr(configs, "get_config",
+                        lambda n: dataclasses.replace(cfg, model=small))
+    monkeypatch.setenv("NATDIFF_PALLAS_CONV", "1")
+    monkeypatch.delenv("NATDIFF_CONV_TILED", raising=False)
+    assert bench_conv.main(["--model", name, "--runs", "1", "--batch", "1",
+                            "--device", "cpu"]) == 0
+    row = json.loads(capsys.readouterr().out.strip())
+    src = (ROOT / "naturaldiffusion_tpu" / "apps" / "bench_conv.py").read_text()
+    labels = re.findall(r'\("(\w+)", "[012]", (?:"\w+"|None)\)', src)
+    assert labels == [m[0] for m in bench_conv.MODEL_MODES]
+    assert (row["model"], row["batch"], row["reps"]) == (name, 1, 4)
+    for label in labels:
+        assert row[f"{label}_ms"] > 0 and row[f"{label}_img_s"] > 0
+        assert f"{label}_error" not in row
+    assert os.environ["NATDIFF_PALLAS_CONV"] == "1"
+    assert "NATDIFF_CONV_TILED" not in os.environ
 
 
 def test_tool_apps_refuse_a_missing_card(monkeypatch):
@@ -189,3 +216,51 @@ def test_tool_apps_refuse_a_missing_card(monkeypatch):
         bench_attention.main(["--lengths", "64"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bench_conv.main(["--toy"])
+
+
+
+def _k1_trace(path, n):
+    """A trace of ``n`` device launches of K1's kernel and one other."""
+    _write_trace(path, [_event("void weighted_sum_kernel<4>(float*)", 1.0)
+                        for _ in range(n)] + [_event(GEMM, 1.0)])
+
+
+def test_chip_smoke_profiles_again_a_trace_that_lost_records(tmp_path):
+    """A trace can lose device records, never add one: the bench check
+    profiles the dispatch again while a trace counts fewer launches than
+    the graph holds (the newest trace is read, ``rec`` takes its numbers),
+    stops at an exact or an excess count, and hands back the last count
+    after BENCH_TRACE_TRIES traces."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke_mod",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert cs.BENCH_TRACE_TRIES == 3
+
+    class FakeBench:
+        def __init__(self, n):
+            self.n, self.seeds = n, []
+
+        def profile_dispatch(self, b, logdir, seed, chunks):
+            self.seeds.append(seed)
+            _k1_trace(Path(logdir) / f"t{seed}.pt.trace.json", self.n)
+            return {"busy": 0.5, "chunks": chunks}
+
+    want = {"fused_weighted_sum": 20, "conv3x3_int8": 0}
+    for first, again, traced, seeds in [
+            (19, 20, 20, [100]),          # short, then whole
+            (20, 20, 20, []),             # whole at once
+            (21, 20, 21, []),             # an excess is no lost record
+            (19, 18, 18, [100, 101])]:    # short in every trace
+        d = tmp_path / f"{first}_{again}_{len(seeds)}"
+        d.mkdir()
+        _k1_trace(d / "a.pt.trace.json", first)
+        os.utime(d / "a.pt.trace.json", (1, 1))
+        B = FakeBench(again)
+        rec = {"form": "fused_bf16", "traced_dispatch": {}, "busy": 0.9}
+        got = cs.whole_trace_launches(B, None, str(d), rec, want)
+        assert got["fused_weighted_sum"] == traced
+        assert got["conv3x3_int8"] == 0 and B.seeds == seeds
+        assert rec["traced_dispatch"]["tries"] == len(seeds) + 1
+        assert rec["busy"] == (0.5 if seeds else 0.9)
