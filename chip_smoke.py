@@ -25,7 +25,9 @@ printed as one line with its numbers and seconds as it ends:
            int8 operands and its output against the plain version bit for
            bit, a seeded fault in one int8 weight, then timed beside its
            bound, the plain version, cuDNN's bf16 conv and
-           ``torch._int_mm`` over an im2col of the int8 input.
+           ``torch._int_mm`` over an im2col of the int8 input, with its
+           TOPS, plan (split, blocks) and registers; then bit for bit at
+           ragged shapes of its plan (``INT8_RAGGED``).
   routes   one batch-64 CIFAR forward in bf16 under each form of the conv
            switch and the int8 modes (``ROUTE_FORMS``) against the f32
            fused forward, with each form's kernel launches.
@@ -199,6 +201,14 @@ BENCH_FORMS = (("0", "", False), ("1", "", False), ("0", "int8", False),
 BENCH_FORM_CHUNKS = 2
 # the H100's dense int8 tensor-core rate (data sheet), operations/s
 INT8_PEAK = 1979e12
+# int8 conv shapes of no model, [B, H, W, Cin] -> Cout: batches that are no
+# multiple of the images a unit holds at 4x4 and 8x8 (split-K clusters of
+# 2), one image at 16x16 (a partial wave, split 2), Cin = 384 under
+# split-K (clusters of 3), ragged 2-D tiles in a launch of 36 blocks and
+# in a persistent one
+INT8_RAGGED = (((3, 4, 4, 256), 256), ((3, 8, 8, 256), 256),
+               ((1, 16, 16, 256), 256), ((64, 8, 8, 384), 256),
+               ((3, 20, 28, 128), 256), ((48, 24, 24, 128), 256))
 # images per second of the CIFAR slice before this script's phases ran K6
 # on it (PERF.md section 6: 69.05 on an NVIDIA H100 80GB HBM3 at 700 W)
 CIFAR_IMG_PER_S_BEFORE_K6 = 69.05
@@ -1328,17 +1338,49 @@ def phase_int8_kernels(model_bf16, details):
                                  f"from the plain version's")
         row["int_mm_ms"] = timer(lambda: torch._int_mm(cols, wmat.t()))
         rows.append(row)
+        row["tops_static"] = row["ops_static"] / row["ms_static"] / 1e9
+        row["tops_dynamic"] = row["ops_dynamic"] / row["ms_dynamic"] / 1e9
         print(f"  conv3x3_int8 {xs} -> {cout} x{mult}: static "
-              f"{row['ms_static']:.4f} ms ({row['ops_static'] / row['ms_static'] / 1e9:.1f} "
+              f"{row['ms_static']:.4f} ms ({row['tops_static']:.1f} "
               f"TOPS, {row['bound_ms_static'] / row['ms_static']:.3f} of the "
               f"{row['bound_by_static']} bound {row['bound_ms_static']:.4f}), "
-              f"dynamic {row['ms_dynamic']:.4f}, plain {row['plain_ms']:.3f}, "
+              f"dynamic {row['ms_dynamic']:.4f} ({row['tops_dynamic']:.1f} "
+              f"TOPS), plain {row['plain_ms']:.3f}, "
               f"cuDNN bf16 {row['library_ms']:.4f}, _int_mm "
-              f"{row['int_mm_ms']:.4f}; plan cfg {row['plan']['cfg']} grid "
-              f"{row['plan']['grid']}; fault moved {row['fault_differs_static']}",
-              flush=True)
+              f"{row['int_mm_ms']:.4f}; plan {row['plan']['units']} units, "
+              f"split {row['plan']['splits']}, blocks "
+              f"{row['plan']['blocks']}; "
+              f"fault moved {row['fault_differs_static']}", flush=True)
         del xx, cols, xq, xp
+    # ragged shapes of the plan: bit for bit, static and dynamic
+    ragged = {}
+    for xs, cout in INT8_RAGGED:
+        xx = (2.0 * rn(*xs)).to(torch.bfloat16)
+        w_i8, s_w, wk = Q.quantize_conv_weight(
+            (rn(3, 3, xs[3], cout) / math.sqrt(9 * xs[3])).to(torch.bfloat16))
+        bias = (0.1 * rn(cout)).to(torch.bfloat16)
+        plan = Q._int8_plan(*xs, cout)
+        for mode, am in (("static", amax), ("dynamic", None)):
+            got = Q.conv3x3_int8(xx, None, bias, w_i8=w_i8, s_w=s_w,
+                                 w_kern=wk, act_amax=am)
+            want = Q.conv3x3_int8_reference(xx, w_i8, s_w, bias, act_amax=am)
+            ndiff = int((got != want).sum())
+            if ndiff:
+                raise AssertionError(
+                    f"int8 ragged {xs} -> {cout} {mode}: {ndiff} elements "
+                    f"differ from the plain version")
+        ragged[repr((xs, cout))] = dict(splits=plan["splits"],
+                                        blocks=plan["blocks"], differ=0)
+        print(f"  conv3x3_int8 ragged {xs} -> {cout}: split "
+              f"{plan['splits']}, blocks {plan['blocks']}: bit for bit, "
+              f"static and dynamic", flush=True)
+    from naturaldiffusion_tpu_torch.ops import _cuda
+    ptxas = kernel_ptxas(_cuda.build_dir() / "conv3x3_int8.log")
+    for fn, regs, spill in ptxas:
+        print(f"  conv3x3_int8 ptxas {fn}: {regs} registers, {spill} bytes "
+              f"spilled", flush=True)
     details["conv3x3_int8"] = rows
+    details["conv3x3_int8_ragged"] = ragged
     tot = {k: sum(r[k] * r["per_forward"] for r in rows)
            for k in ("ms_static", "ms_dynamic", "plain_ms", "library_ms",
                      "int_mm_ms", "bound_ms_static", "ops_static",
@@ -1358,7 +1400,8 @@ def phase_int8_kernels(model_bf16, details):
              "batch-64 forward's int8 launches; library_ms is cuDNN's bf16 "
              "conv, library_int_mm_ms torch._int_mm over an im2col")
     phase("int8_kernels", t0, shapes=len(rows), per_forward_launches=n_int8,
-          bitwise_equal=True,
+          bitwise_equal=True, ragged=len(ragged),
+          ptxas={fn: [regs, spill] for fn, regs, spill in ptxas},
           per_forward={k: round(v, 4) for k, v in tot.items()
                        if "ms" in k},
           achieved_tops=tot["ops_static"] / tot["ms_static"] / 1e9,

@@ -1,12 +1,16 @@
 // Tensor-core and asynchronous-copy helpers shared by the port's kernels
-// (conv3x3.cu, attention.cu, qmatmul.cu): shared-memory addresses,
-// ldmatrix, mma.sync m16n8k16 on bf16 with f32 accumulators and m16n8k32
-// on s8 with s32 ones, bf16x2 packing and cp.async with zero fill.
-// Header-only; each .cu builds on its own (conv3x3_int8.cu too).
+// (conv3x3.cu, attention.cu, qmatmul.cu, conv3x3_int8.cu): shared-memory
+// addresses, ldmatrix, mma.sync m16n8k16 on bf16 with f32 accumulators,
+// bf16x2 packing, cp.async with zero fill; for the Hopper kernels (qmatmul.cu,
+// conv3x3_int8.cu) wgmma, mbarriers, TMA, cluster shared memory, named
+// barriers, setmaxnreg and the host-side tensor-map encoder.
+// Header-only; each .cu builds on its own.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -47,18 +51,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// c += a * b for one 16x8x32 int8 tile: a row-major (4 regs of 4 s8: rows
-// g and g+8, k 4t..4t+3 and 16+4t..), b column-major (2 regs: column g, k
-// 4t..4t+3 and 16+4t..), c s32 (4 regs: rows g and g+8, columns 2t, 2t+1)
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
@@ -85,3 +77,271 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+// ---- Hopper: wgmma, mbarriers, TMA, clusters --------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// the compiler keeps r in place up to here: no non-wgmma instruction may
+// define a wgmma operand while the wgmma runs (else ptxas serialises them)
+__device__ __forceinline__ void keep(float& r) {
+  asm volatile("" : "+f"(r) :: "memory");
+}
+__device__ __forceinline__ void keep(uint32_t& r) {
+  asm volatile("" : "+r"(r) :: "memory");
+}
+__device__ __forceinline__ void keep(int& r) {
+  asm volatile("" : "+r"(r) :: "memory");
+}
+__device__ __forceinline__ void keep(uint64_t& r) {
+  asm volatile("" : "+l"(r) :: "memory");
+}
+
+// shared-memory matrix descriptor: K-major rows of 128 bytes, 128-byte
+// swizzle, 8-row atoms 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d += A * B for one m64n128k16 step of a warpgroup: A (64 x 16 bf16) from
+// registers in mma.sync's A fragment layout (warp w holds rows 16w..16w+15),
+// B (16 x 128 bf16) from shared memory by descriptor, K-major; d in f32,
+// the m16n8 accumulator layout per n8 chunk (d[4i..4i+3]: chunk i)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// d += A * B for one m64n128k32 step of a warpgroup on int8: A (64 x 32 s8)
+// from registers in mma.sync m16n8k32's A fragment layout (warp w holds rows
+// 16w..16w+15: a[0] row g, k 4t..4t+3; a[1] row g+8; a[2], a[3] the same
+// at k + 16), B (32 x 128 s8) from shared memory by descriptor, K-major (the
+// only form 8-bit wgmma takes); d in s32, the m16n8 accumulator layout per
+// n8 chunk (d[4i..4i+3]: chunk i, rows g and g+8, columns 2t and 2t+1)
+__device__ __forceinline__ void wgmma_m64n128k32_s8_rs(int (&d)[64],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// ldmatrix x4 from a shared-memory address
+__device__ __forceinline__ void ldsm_x4_at(uint32_t (&r)[4], uint32_t saddr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(saddr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+// A wait that lasts seconds is a fault of the kernel (a phase that never
+// completes): it traps, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void wait_guard(uint32_t n, uint64_t& t0) {
+  if ((n & 1023) != 1023) return;
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  if (t0 == 0)
+    t0 = t;
+  else if (t - t0 > 4000000000ull)
+    __trap();
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t t0 = 0;
+  for (uint32_t n = 0;; ++n) {
+    uint32_t ok;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+    if (ok) return;
+    wait_guard(n, t0);
+  }
+}
+// bytes contiguous bytes into shared memory, counted on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+// a 2-D box of a tensor map into shared memory, counted on bar
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(bar) : "memory");
+}
+// a 4-D box (coordinates innermost first, negative ones allowed: elements
+// outside the tensor land as zeros), counted on bar
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// a 5-D box, counted on bar
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            int c4, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n"
+      :: "r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+         "r"(bar)
+      : "memory");
+}
+
+// threads of the block's warps [first, first + n / 32) meet here (bar 0 is
+// __syncthreads')
+__device__ __forceinline__ void named_barrier(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// a warpgroup's per-thread register budget (a multiple of 8 in [24, 256]),
+// given back to or taken from the SM's pool; every warp of the warpgroup
+// runs it
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// clusters: this block's rank, every thread of the cluster meets (with
+// release / acquire of shared memory), a peer's shared-memory address, a
+// load from it and an arrival on a peer's mbarrier
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t saddr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(saddr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ uint4 ld_cluster_v4(uint32_t caddr) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(caddr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t caddr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               :: "r"(caddr) : "memory");
+}
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint64_t t0 = 0;
+  for (uint32_t n = 0;; ++n) {
+    uint32_t ok;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+    if (ok) return;
+    wait_guard(n, t0);
+  }
+}
+
+// ---- host: tensor maps ------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// A tiled tensor map of `rank` dimensions (innermost first; strides in bytes
+// of dimensions 1..rank-1), unit element strides, elements outside the
+// tensor read as zeros.  libcuda's encoder is looked up at run time, so
+// nothing links libcuda.  0, or a cudaError_t.
+static inline int encode_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
+                                    int rank, const void* base,
+                                    const cuuint64_t* dims,
+                                    const cuuint64_t* strides,
+                                    const cuuint32_t* box,
+                                    CUtensorMapSwizzle swizzle) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
+        cudaEnableDefault, &q);
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess || !encode) {
+      encode = nullptr;
+      return (int)cudaErrorSymbolNotFound;
+    }
+  }
+  const cuuint32_t one[5] = {1, 1, 1, 1, 1};
+  return encode(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims,
+                strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 0
+             : (int)cudaErrorInvalidValue;
+}

@@ -90,100 +90,6 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// ---- wgmma, mbarrier and TMA ------------------------------------------------
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// the compiler keeps r in place up to here: no non-wgmma instruction may
-// define a wgmma operand while the wgmma runs (else ptxas serialises them)
-__device__ __forceinline__ void keep(float& r) {
-  asm volatile("" : "+f"(r) :: "memory");
-}
-__device__ __forceinline__ void keep(uint32_t& r) {
-  asm volatile("" : "+r"(r) :: "memory");
-}
-__device__ __forceinline__ void keep(uint64_t& r) {
-  asm volatile("" : "+l"(r) :: "memory");
-}
-
-// shared-memory matrix descriptor: K-major rows of 128 bytes, 128-byte
-// swizzle, 8-row atoms 1024 bytes apart
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// d += A * B for one m64n128k16 step of a warpgroup: A (64 x 16 bf16) from
-// registers in mma.sync's A fragment layout (warp w holds rows 16w..16w+15),
-// B (16 x 128 bf16) from shared memory by descriptor, K-major; d in f32,
-// the m16n8 accumulator layout per n8 chunk (d[4i..4i+3]: chunk i)
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
-                                                    const uint32_t (&a)[4],
-                                                    uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-  } while (!ok);
-}
-// bytes contiguous bytes into shared memory, counted on bar
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-// a 2-D box of a tensor map into shared memory, counted on bar
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(bar) : "memory");
-}
-
 // ---- the kernels ------------------------------------------------------------
 
 // xmap: x [M, K] bf16, boxes of 64 k x 128 rows, 128-byte swizzle; wp the
@@ -390,37 +296,15 @@ int launch(dim3 grid, cudaStream_t st, const CUtensorMap& xmap,
   return (int)cudaGetLastError();
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // The tensor map of x [M, K] bf16 (K contiguous): boxes of BK x BM with the
 // 128-byte swizzle that wgmma's B descriptor expects; rows past M read as
 // zeros.
 int tensor_map(CUtensorMap* map, const void* x, int M, int K) {
-  static EncodeTiled encode = nullptr;  // libcuda's, looked up at run time
-  if (!encode) {
-    cudaDriverEntryPointQueryResult q;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
-        cudaEnableDefault, &q);
-    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess || !encode) {
-      encode = nullptr;
-      return (int)cudaErrorSymbolNotFound;
-    }
-  }
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
   const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
   const cuuint32_t box[2] = {BK, BM};
-  const cuuint32_t one[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x),
-                dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? 0
-             : (int)cudaErrorInvalidValue;
+  return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, dims,
+                           strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace

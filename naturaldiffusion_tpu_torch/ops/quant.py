@@ -28,8 +28,9 @@ are the same bytes:
   by one f32 rounding; the int8 operands and int32 sums do not differ).
 
 :func:`conv3x3_int8` on a CUDA tensor runs ``csrc/conv3x3_int8.cu``, an
-implicit GEMM on ``mma.sync`` s8 x s8 -> s32 with the quantize of the
-bf16 halo in its prologue and the dequant in its epilogue; the JAX
+implicit GEMM on ``wgmma`` s8 x s8 -> s32 fed by TMA (the bf16 halo,
+quantized by a producer warpgroup, and the int8 weights), with the dequant
+in its epilogue and split-K across a cluster on the small maps; the JAX
 package's is an XLA s8 conv (``ops/quant.py:153-156``), not Pallas.  Its
 plain version (:func:`conv3x3_int8_reference`), the CPU's route and the
 card's oracle, quantizes as above and runs the conv on float64 copies of
@@ -50,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
-from .conv3x3 import _MIN_BLOCKS, TILES, _spatial_tile
+from .conv3x3 import _MIN_BLOCKS, _spatial_tile
 
 _QMAX = 127.0
 MODES = ("int8", "int8_all", "int8_static", "int8_all_static")
@@ -59,14 +60,19 @@ WIDE_MODES = ("int8_all", "int8_all_static")
 STATIC_MODES = ("int8_static", "int8_all_static")
 
 # constants of csrc/conv3x3_int8.cu (the entry checks them): input channels
-# (bytes) per chunk, weight ring stages, int8 halo and weight row strides
-_BK, _STAGES, _SA, _SB = 128, 3, 144, 144
+# (bytes) per chunk, output pixels and channels per unit, weight ring
+# stages, int8 halo row stride, most blocks a split-K cluster takes, bytes
+# of the mbarriers and of the alignment slack
+_BK, _BM, _BN, _STAGES, _SA = 128, 128, 128, 4, 144
+_MAX_SPLITS, _BAR_BYTES, _ALIGN = 4, 128, 1024
+# the H100's SMs: a persistent launch takes one block each
+_SMS = 132
 SMEM_MAX = 232_448
 # natdiff_conv3x3_int8(dyn, x, w, s_w, bias, sx, q_mul, s_static, y, B, H,
-# W, Cin, Cout, cfg, imgs, th, tw, bk, stages, grid_x, grid_y, smem, stream)
+# W, Cin, Cout, imgs, th, tw, bk, stages, splits, blocks, smem, stream)
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5
              + [ctypes.c_float] * 2 + [ctypes.c_void_p]
-             + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 13 + [ctypes.c_void_p])
 
 
 def _div_qmax(t: torch.Tensor) -> torch.Tensor:
@@ -146,7 +152,8 @@ def quantize_act_static(x: torch.Tensor, amax: float):
 def pack_conv_weight(w_i8: torch.Tensor) -> torch.Tensor:
     """The kernel's weight layout: ``[3,3,Cin,Cout]`` int8 ->
     ``[9, Cout, Cin]`` contiguous (each output channel's inputs
-    contiguous, as the B operand of ``mma.sync`` m16n8k32 reads them)."""
+    contiguous: the K-major B operand of ``wgmma`` s8, which the kernel's
+    tensor map reads as ``[9 Cout, Cin]``)."""
     cin, cout = w_i8.shape[2], w_i8.shape[3]
     return w_i8.reshape(9, cin, cout).transpose(1, 2).contiguous()
 
@@ -198,37 +205,56 @@ def conv3x3_int8_reference(x, w_i8, s_w, bias=None, *, per_sample=True,
 
 
 def _int8_plan(bsz, hh, ww, cin, cout):
-    """The int8 kernel's launch for ``[bsz, hh, ww, cin] -> cout``: the
-    largest tile of ``ops.conv3x3.TILES`` whose grid reaches 128 blocks
-    (the smallest where none does), its spatial tile (as the bf16 kernel's,
-    ``_spatial_tile``), grid and dynamic shared memory: the bf16 staging of
-    a halo chunk, two int8 halo buffers, the weight ring and the row
-    tables.  Pure: the CPU tests walk it, and the C entry checks it."""
-    if cin % _BK or cout % 128:
+    """The int8 kernel's launch for ``[bsz, hh, ww, cin] -> cout``.
+
+    A unit is a tile of ``_BM`` output pixels (``_spatial_tile``, as the
+    bf16 kernel's) times ``_BN`` output channels: ``grid`` is (pixel tiles,
+    channel blocks).  Where the units reach ``_MIN_BLOCKS``, one block an
+    SM walks them persistently (``blocks`` = min(units, ``_SMS``),
+    ``splits`` 1); else the ``cin / _BK`` channel chunks are split across a
+    cluster of ``splits`` blocks (the fewest, at most ``_MAX_SPLITS``,
+    dividing the chunks, that reach ``_MIN_BLOCKS``; the most where none
+    does), one unit a cluster.  Shared memory: :func:`_int8_smem`.  Pure:
+    the CPU tests walk it, and the C entry checks it."""
+    if cin % _BK or cout % _BN:
         raise ValueError(f"conv3x3_int8 kernel: channel counts must be "
                          f"multiples of 128, got {cin} -> {cout}")
-    for cfg, (bm, bn) in enumerate(TILES):
-        imgs, th, tw = _spatial_tile(bm, hh, ww)
-        tiles_h, tiles_w = -(-hh // th), -(-ww // tw)
-        grid = (-(-bsz // imgs) * tiles_h * tiles_w, cout // bn)
-        if grid[0] * grid[1] >= _MIN_BLOCKS:
-            break
+    imgs, th, tw = _spatial_tile(_BM, hh, ww)
+    tiles_h, tiles_w = -(-hh // th), -(-ww // tw)
+    grid = (-(-bsz // imgs) * tiles_h * tiles_w, cout // _BN)
+    units = grid[0] * grid[1]
+    kc = cin // _BK
+    splits = 1
+    if units < _MIN_BLOCKS:
+        for s in range(2, _MAX_SPLITS + 1):
+            if kc % s == 0:
+                splits = s
+                if units * s >= _MIN_BLOCKS:
+                    break
+    blocks = units * splits if splits > 1 else min(units, _SMS)
     halo = imgs * (th + 2) * (tw + 2)
-    smem = (halo * _BK * 2 + 2 * halo * _SA + _STAGES * bn * _SB
-            + -(-4 * imgs // 16) * 16 + -(-5 * halo // 16) * 16)
-    if smem > SMEM_MAX or grid[1] > 65535:
+    smem = _int8_smem(halo)
+    if smem > SMEM_MAX or halo > _BM * 9 // 4 or units >= 2 ** 30:
         raise ValueError(f"conv3x3_int8: no tile plan for "
                          f"{(bsz, hh, ww, cin)} -> {cout}")
-    return dict(cfg=cfg, bm=bm, bn=bn, imgs=imgs, th=th, tw=tw,
-                tiles_h=tiles_h, tiles_w=tiles_w, halo_rows=halo, bk=_BK,
-                stages=_STAGES, grid=grid, smem=smem)
+    return dict(bm=_BM, bn=_BN, imgs=imgs, th=th, tw=tw, tiles_h=tiles_h,
+                tiles_w=tiles_w, halo_rows=halo, bk=_BK, stages=_STAGES,
+                grid=grid, units=units, chunks=kc, splits=splits,
+                blocks=blocks, smem=smem)
+
+
+def _int8_smem(halo):
+    """The int8 kernel's dynamic shared memory: alignment slack, the weight
+    ring, the bf16 staging, two int8 halo buffers, the mbarriers."""
+    return (_ALIGN + _STAGES * _BN * _BK + halo * _BK * 2
+            + 2 * halo * _SA + _BAR_BYTES)
 
 
 @functools.lru_cache(maxsize=512)
 def _plan_ints(bsz, hh, ww, cin, cout):
     p = _int8_plan(bsz, hh, ww, cin, cout)
-    return (p["cfg"], p["imgs"], p["th"], p["tw"], p["bk"], p["stages"],
-            *p["grid"], p["smem"])
+    return (p["imgs"], p["th"], p["tw"], p["bk"], p["stages"], p["splits"],
+            p["blocks"], p["smem"])
 
 
 def _launch(x, w_kern, s_w, bias, sx, act_amax):
@@ -247,10 +273,12 @@ def _launch(x, w_kern, s_w, bias, sx, act_amax):
     ts = [t for t in (x, w_kern, s_w, bias, sx) if t is not None]
     if any(t.device != x.device for t in ts):
         raise ValueError("conv3x3_int8: tensors on several devices")
-    if not all(t.is_contiguous() for t in ts) or x.data_ptr() % 16 \
-            or w_kern.data_ptr() % 16:
-        raise ValueError("conv3x3_int8 kernel takes contiguous tensors, x "
-                         "and the packed weight 16-byte aligned")
+    if not all(t.is_contiguous() for t in ts) or any(
+            t.data_ptr() % 16 for t in (x, w_kern, s_w, bias)
+            if t is not None):
+        raise ValueError("conv3x3_int8 kernel takes contiguous tensors, x, "
+                         "the packed weight, s_w and the bias 16-byte "
+                         "aligned")
     if bsz * hh * ww * max(cin, cout) >= 2 ** 31:
         raise ValueError("conv3x3_int8: tensor too large for the kernel")
     if s_w.dtype != torch.float32 or s_w.numel() != cout:

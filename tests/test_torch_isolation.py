@@ -123,7 +123,7 @@ def test_no_source_imports_jax_or_the_jax_package():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|naturaldiffusion_tpu)"
                      r"(\.|\s|$)", re.M)
     files = list((ROOT / "naturaldiffusion_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "int8_ablation.py"]
     assert len(files) > 10
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders

@@ -1,8 +1,10 @@
 """The port's int8 quantization (``ops/quant.py``) against the JAX
 package's on the CPU: the mode switch, the int8 operands byte for byte
 (half steps and the +-127 clip included), the int8 convs in every mode, the
-kernel's tile plan at every CIFAR and VE shape, and the weight cache of
-the model's layers."""
+kernel's plan at every CIFAR and VE shape (tiles, split-K, shared memory,
+the blocks' walk), its split-K partition and its dynamic quantize's
+arithmetic in plain torch and numpy, and the weight cache of the model's
+layers."""
 
 import jax
 import jax.numpy as jnp
@@ -302,3 +304,136 @@ def test_kernel_route_refuses_what_it_cannot_run():
         tq._launch(x, wk, sw, None, None, 6.0)
     with pytest.raises(ValueError, match="packed weight"):
         tq._launch(x.bfloat16(), wk[:, :, :64], sw, None, None, 6.0)
+
+
+def _divisors_to_4(n):
+    return [s for s in range(2, tq._MAX_SPLITS + 1) if n % s == 0]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_int8_plan_fits_and_fills_the_card(shape):
+    """Tile, split, weight ring and halo buffers fit the card's 232,448
+    bytes; the split divides the channel chunks; the launch reaches
+    ``_MIN_BLOCKS`` blocks (a persistent one capped at one an SM) wherever
+    the units or a split of at most ``_MAX_SPLITS`` can, and takes the
+    most splits where none can."""
+    from naturaldiffusion_tpu_torch.ops.conv3x3 import _MIN_BLOCKS
+    b, h, w, cin, cout = shape
+    p = tq._int8_plan(b, h, w, cin, cout)
+    assert p["smem"] == tq._int8_smem(p["halo_rows"]) <= tq.SMEM_MAX
+    assert p["stages"] == tq._STAGES
+    assert p["chunks"] == cin // tq._BK and p["chunks"] % p["splits"] == 0
+    assert p["units"] == p["grid"][0] * p["grid"][1]
+    if p["units"] >= _MIN_BLOCKS:
+        assert p["splits"] == 1
+        assert p["blocks"] == min(p["units"], tq._SMS)
+    else:
+        assert p["blocks"] == p["units"] * p["splits"]
+        can = [s for s in _divisors_to_4(p["chunks"])
+               if p["units"] * s >= _MIN_BLOCKS]
+        assert p["splits"] == (min(can) if can else
+                               max(_divisors_to_4(p["chunks"]), default=1))
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES + [(64, 8, 8, 384, 256),
+                                                 (3, 4, 4, 256, 256)])
+def test_int8_block_walk_covers_every_unit_chunk_once(shape):
+    """The kernel's walk (block ``b``: cluster rank ``b % splits`` sums
+    chunks ``rank * kc / splits ..``, units ``b / splits``, then every
+    ``blocks / splits``-th) takes each (unit, input-channel chunk) exactly
+    once, and a split's blocks are one cluster on one unit."""
+    b, h, w, cin, cout = shape
+    p = tq._int8_plan(b, h, w, cin, cout)
+    s, kcs = p["splits"], p["chunks"] // p["splits"]
+    assert p["blocks"] % s == 0
+    seen = np.zeros((p["units"], p["chunks"]), np.int64)
+    for blk in range(p["blocks"]):
+        rank, u0, ustep = blk % s, blk // s, p["blocks"] // s
+        units = list(range(u0, p["units"], ustep))
+        if s > 1:
+            assert units == [u0]          # one unit per cluster
+        for u in units:
+            seen[u, rank * kcs:(rank + 1) * kcs] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("mode", ["static", "dynamic"])
+@pytest.mark.parametrize("shape", [(2, 4, 4, 512, 128), (3, 8, 8, 256, 128),
+                                   (1, 6, 10, 384, 128)])
+def test_int8_split_k_partition_equals_reference(mode, shape):
+    """The split-K partition of the plan in plain torch: each split's int32
+    partial sums over its input-channel chunks, added, then the dequant,
+    equal ``conv3x3_int8_reference`` bit for bit."""
+    b, h, w, cin, cout = shape
+    p = tq._int8_plan(b, h, w, cin, cout)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(_x(rng, (b, h, w, cin))).to(torch.bfloat16)
+    wt = torch.from_numpy(rng.standard_normal((3, 3, cin, cout))
+                          .astype(np.float32) / 40.0)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)
+                            / 10.0).to(torch.bfloat16)
+    w_i8, s_w, _ = tq.quantize_conv_weight(wt.to(torch.bfloat16))
+    amax = 6.0 if mode == "static" else None
+    x_i8, sx = tq._act(x, True, amax)
+    assert p["splits"] > 1
+    kcs = p["chunks"] // p["splits"]
+    acc = torch.zeros((b, h, w, cout), dtype=torch.int32)
+    for r in range(p["splits"]):
+        c = slice(r * kcs * tq._BK, (r + 1) * kcs * tq._BK)
+        part = torch.nn.functional.conv2d(
+            x_i8[..., c].permute(0, 3, 1, 2).double(),
+            w_i8[:, :, c].permute(3, 2, 0, 1).double(), padding=1)
+        acc += part.permute(0, 2, 3, 1).to(torch.int32)
+    got = tq._dequant(acc, sx, s_w, bias, x.dtype)
+    want = tq.conv3x3_int8_reference(x, w_i8, s_w, bias, act_amax=amax)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_dynamic_quantize_fast_path_equals_the_division():
+    """The kernel's dynamic quantize (``quantize_div`` in
+    ``csrc/conv3x3_int8.cu``) in float32 numpy, step for step: ``q = f *
+    rcp`` with ``rcp`` the correctly rounded ``1 / d``, ``rint(q)`` unless
+    ``q`` lies within 2^-14 of a half-integer, then the division.  For
+    every finite bf16 ``f`` and scales ``d`` of every kind it equals
+    ``clip(rint(f / d))`` with the IEEE quotient, and at random scales it
+    divides for under 1 in 1000 of the values ``|f| <= amax``."""
+    bits = np.arange(2 ** 16, dtype=np.uint32) << 16
+    f = bits.view(np.float32)
+    f = f[np.isfinite(f)]
+    rng = np.random.default_rng(3)
+    amax = np.concatenate([
+        rng.uniform(0.01, 20.0, 60), 2.0 ** rng.integers(-20, 20, 20),
+        np.nextafter(np.float32(2.0 ** np.arange(-8, 8)), np.float32(0)),
+        [1e-30, 1.0, 127.0, 6.0, 3.3895314e38]]).astype(np.float32)
+    d_all = np.maximum(amax, np.float32(1e-30)) / np.float32(127.0)
+    slow = realistic = 0
+    with np.errstate(over="ignore", invalid="ignore"):
+        for k, d in enumerate(d_all.astype(np.float32)):
+            rcp = np.float32(1.0) / d
+            q = f * rcp
+            fast = np.abs(q - np.floor(q) - np.float32(0.5)) > np.float32(2 ** -14)
+            exact = f / d
+            got = np.where(fast, q, exact)
+            clip = lambda v: np.clip(np.nan_to_num(np.rint(v), nan=0.0,
+                                                   posinf=127, neginf=-127),
+                                     -127, 127)
+            np.testing.assert_array_equal(clip(got), clip(exact))
+            if k < 60:  # random scales, |f| <= amax as the dynamic scales hold
+                live = np.abs(f) <= amax[k]
+                slow += int((~fast & live).sum())
+                realistic += int(live.sum())
+    assert slow < 1e-3 * realistic
+
+
+def test_int8_ablation_patches_apply_to_the_kernel():
+    """``int8_ablation.py``'s patches name text the kernel's source holds,
+    and without a card it refuses to run."""
+    import int8_ablation as ab
+    from naturaldiffusion_tpu_torch.ops import _cuda
+    src = (_cuda.CSRC / "conv3x3_int8.cu").read_text()
+    for name, (patches, _) in ab.PATCHES.items():
+        for old, new in patches:
+            assert src.count(old) == 1, name
+            assert old != new
+    if not torch.cuda.is_available():
+        assert ab.main([]) == 2
