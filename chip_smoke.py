@@ -37,6 +37,21 @@ printed as one line with its numbers and seconds as it ends:
            in bf16 through ``apps.cifar10_ni.make_sampler``, launch counts
            read around it, img/s, and the first 2 samples against a CPU
            float32 run fed the same noises.
+  samplers the sampler families over the CIFAR model as the VP config
+           ``vp/cifar10_ddpmpp_continuous``: (a) four direct recursions
+           (DDIM, DDPM with the same noises, DPM-Solver++(2S) on its
+           deriver's grid, DEIS t-AB order 3) against Natural Inference
+           with their derived matrices, f32 through the kernels at batch
+           8 and 10 steps, the same time labels on both sides, each beside
+           its NI run with the labels 1 % off, and ``apps.validate`` on
+           the card (its toy denoisers, 1e-4); (b) two cells of
+           ``apps.sweep`` in bf16 (DPM-Solver++ multistep order 2, DEIS
+           t-AB order 3), their CSV rows; (c) ``get_pc_sampler`` with the
+           config's VPSDE at N = 10 and its euler_maruyama predictor, bf16
+           against f32 plain versions on the card beside two controls;
+           (d) ``get_ode_sampler`` at rtol = atol = 1e-3, f32, the kernels
+           against the plain versions.  Each drive's launches are checked
+           against its forwards' (and NI steps') counts.
   bench    the port bench, ``apps.bench``, on one ``Bench`` at its
            defaults (1024 images a dispatch in 16 replays of a CUDA graph
            of one 64-image 10-step run): the wrappers' launch counts around
@@ -85,7 +100,7 @@ printed as one line with its numbers and seconds as it ends:
            which form is faster.
   ve_slice      the VE path: ``get_pc_sampler`` (reverse diffusion +
            Langevin, snr 0.075) over the full-width model in bf16 at batch
-           4, with N = 10 steps instead of the config's 2000; launch
+           4, with N = 2 steps instead of the config's 2000; launch
            counts, img/s, MFU, the card's busy share, and the samples
            against an f32 run of the plain versions on the card beside two
            controls, and the kernels in f32 against the same run.
@@ -117,6 +132,7 @@ import concurrent.futures
 import contextlib
 import copy
 import functools
+import io
 import json
 import math
 import os
@@ -158,6 +174,12 @@ SLICE_F32_TOL = 1e-3
 # profiled: tracing all 16 replays made the phase take 96.5 s on an H100,
 # most of it the profiler's processing of their kernels
 BENCH_TOTAL = 1024
+# timed 1024-image dispatches of the bench phase, and timed runs of the
+# bench's eager control and of each DiT slice mode (medians; 5, 3 and 3
+# until the samplers phase came: the run's time limit)
+BENCH_DISPATCHES = 1
+BENCH_EAGER_RUNS = 1
+DIT_TIMED_RUNS = 1
 BENCH_CHUNKS_EAGER = 2
 BENCH_CHUNKS_TRACED = 2
 # a trace of graph replays can lose device records, never add one (two
@@ -199,6 +221,9 @@ BENCH_DEFAULT_FORM = ("0", "int8_static", False)
 BENCH_FORMS = (("0", "", False), ("1", "", False), ("0", "int8", False),
                ("0", "int8_all", False), ("0", "int8_all_static", True))
 BENCH_FORM_CHUNKS = 2
+# timed dispatches of each of BENCH_FORMS (bench.measure's median; 5 until
+# the samplers phase came: the run's time limit)
+BENCH_FORM_DISPATCHES = 1
 # the H100's dense int8 tensor-core rate (data sheet), operations/s
 INT8_PEAK = 1979e12
 # int8 conv shapes of no model, [B, H, W, Cin] -> Cout: batches that are no
@@ -213,15 +238,52 @@ INT8_RAGGED = (((3, 4, 4, 256), 256), ((3, 8, 8, 256), 256),
 # on it (PERF.md section 6: 69.05 on an NVIDIA H100 80GB HBM3 at 700 W)
 CIFAR_IMG_PER_S_BEFORE_K6 = 69.05
 
-VE_CONFIG, VE_BATCH, VE_STEPS = "ve/celebahq_256_ncsnpp_continuous", 4, 10
+# the samplers phase: the CIFAR model above as vp/cifar10_ddpmpp_continuous
+SAMPLERS_CONFIG = "vp/cifar10_ddpmpp_continuous"
+SAMPLERS_BATCH, SAMPLERS_STEPS = 8, 10
+# NI with a sampler's derived matrix against the sampler's own recursion,
+# both f32 through the kernels on the same model, time labels and noises:
+# K1's weighted sums against the recursion's axpys, f32 sums in another
+# order; relative L2; the f32 limit of ve_slice.  Sound runs read
+# 3.9e-7 to 5.4e-7 on an H100.  Each pair's control (the NI run with its
+# time labels 1 % off, 5.5e-2 to 8.3e-2 there) must read at least
+# CONTROL_FACTOR times the limit
+NI_PAIR_TOL = 1e-3
+CONTROL_FACTOR = 10
+# two cells of apps.sweep in bf16: (family, --only); one batch of 64, so
+# the app's steady-state img/s (the first batch excluded) is nan, and the
+# phase times the cell's call itself
+SWEEP_CELLS = (("dpmsolverpp", "multistep:2"), ("deis", "t:t_ab:3"))
+SWEEP_NUM, SWEEP_BATCH = 64, 64
+# VP PC sampling (euler_maruyama + none, the config's) at N = 10 of 1000,
+# bf16 kernels against the f32 plain versions on the card, relative L2 of
+# the samples, set as ve_slice's limits before the first reading: sound
+# runs read 3.9e-3 on an H100 (the plain versions in bf16 the same), the
+# time 1 % off 7.7e-2, the f32 kernels 7.4e-7
+VP_PC_STEPS = 10
+VP_PC_TOL = 3e-2
+VP_PC_F32_TOL = 1e-3
+# the probability-flow ODE sampler at rtol = atol = 1e-3 (JAX's default
+# 1e-5), batch 2, f32: the kernels against the plain versions on the card,
+# relative L2; adaptive steps may take other step sizes on either side.
+# Sound runs read 4.2e-7 to 9.2e-7 on an H100 with the same 85 model
+# calls on both sides; the time 1 % off reads 1.0e-2, at the limit, so
+# this check sees only a gross fault (the NI pairs hold the f32 kernels
+# to 1e-3 beside 5e-2 controls).  More than ODE_MAX_NFE model evaluations
+# fails the phase
+ODE_RTOL, ODE_BATCH, ODE_TOL, ODE_MAX_NFE = 1e-3, 2, 1e-2, 500
+
+# N = 2 PC steps of the config's 2000 (10 until the samplers phase came:
+# the run's time limit; the limits below were read at N = 10)
+VE_CONFIG, VE_BATCH, VE_STEPS = "ve/celebahq_256_ncsnpp_continuous", 4, 2
 # XLA's cost analysis of the JAX package's forward of this model at one
 # image: 529 GFLOP
 VE_FLOP_PER_IMAGE = 529e9
 # full-width VE forward, f32 card vs f32 CPU, relative L2: 49 resblocks of
 # f32 sums in other orders, as FORWARD_TOL
 VE_FORWARD_TOL = 1e-4
-# N = 10 PC sampling, bf16 kernels vs f32 plain versions on the card,
-# relative L2 of the samples: a sound run read 1.69e-2 on an H100, and so
+# PC sampling, bf16 kernels vs f32 plain versions on the card, relative
+# L2 of the samples: at N = 10 a sound run read 1.69e-2 on an H100, and so
 # did the plain versions in bf16 (1.68e-2).  The random-weight score moves
 # the state by sigma x its output at every step, so the samples carry the
 # forward's bf16 error whole; the time 1 % off read only 1.83e-2, so this
@@ -983,6 +1045,351 @@ def phase_slice(model_f32, n_plain, n_gn, n_k6, smi):
     return launches, BATCH / wall
 
 
+def per_forward_counts(net, dtype, batch):
+    """The kernel launches of one forward of ``net`` at ``batch`` CIFAR
+    images in ``dtype`` (the routes depend on both)."""
+    import torch
+    counters = bench_counters()
+    zero_counts(counters)
+    with torch.no_grad():
+        net(torch.zeros((batch, 32, 32, 3), dtype=dtype, device="cuda"),
+            torch.full((batch,), 500.0, device="cuda"))
+    torch.cuda.synchronize()
+    return read_counts(counters)
+
+
+def expect_counts(per_fwd, nfe, k1=0):
+    """``nfe`` forwards' launches, and ``k1`` NI steps' K1 launches."""
+    return {k: (k1 if k == "fused_weighted_sum" else nfe * v)
+            for k, v in per_fwd.items()}
+
+
+class Drive:
+    """Counts the kernel launches of the phase's own drives: each drive
+    sets every count to 0 before and reads the counts after, checks them
+    against what its forwards and NI steps must launch, and adds them to
+    the phase's total; the runs beside the drives (controls, plain
+    versions) are not counted."""
+
+    def __init__(self):
+        self.total = {}
+
+    @contextlib.contextmanager
+    def __call__(self, what, expect_fn):
+        import torch
+        counters = bench_counters()
+        zero_counts(counters)
+        yield
+        torch.cuda.synchronize()
+        got, want = read_counts(counters), expect_fn()
+        if got != want:
+            raise AssertionError(f"samplers {what}: launches {got} != {want}")
+        for k, v in got.items():
+            self.total[k] = self.total.get(k, 0) + v
+
+
+def ni_pairs(net, drive, per_fwd):
+    """Four samplers' direct recursions against NI with their derived
+    matrices, f32 through the kernels, the same model, init, noises and
+    time labels; each with its NI control (labels 1 % off)."""
+    import numpy as np
+    import torch
+    from naturaldiffusion_tpu_torch.coeffs import registry
+    from naturaldiffusion_tpu_torch.engine import NISchedule, natural_inference
+    from naturaldiffusion_tpu_torch.engine.predictions import to_x0
+    from naturaldiffusion_tpu_torch.samplers import deis, direct
+    from naturaldiffusion_tpu_torch.samplers import dpm_solver as D
+    from naturaldiffusion_tpu_torch.schedules import LinearVPSDE
+
+    B, n = SAMPLERS_BATCH, SAMPLERS_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    init = torch.randn((B, 32, 32, 3), generator=gen, device="cuda")
+    noises = torch.randn((n, B, 32, 32, 3), generator=gen, device="cuda")
+
+    def model(labels, scale=1.0):
+        def eps(x, lab):
+            labels.append(lab)
+            return net(x, lab * scale)
+        return eps
+
+    def discrete(alg):
+        """ddim / ddpm: the model's label is the timestep itself; the
+        direct side converts eps to x0 with the matrix's alpha and sigma
+        of the step, as the engine does."""
+        sched = NISchedule.from_matrix(registry.derive(alg, n), device="cuda")
+        stoch = alg == "ddpm"
+
+        def direct_run(labels):
+            eps, k = model(labels), [0]
+
+            def x0_fn(x, t):
+                _, a, s = sched.node[k[0]]
+                k[0] += 1
+                return to_x0(eps(x, t.expand(B)), x, a, s, "eps")
+            if stoch:
+                return direct.ddpm_ancestral(x0_fn, n, init, noises)
+            return direct.ddim(x0_fn, n, init)
+
+        def ni_run(labels, scale=1.0):
+            eps = model(labels, scale)
+            return natural_inference(lambda z, t: eps(z, t.expand(B)),
+                                     sched, init,
+                                     noises=noises if stoch else None,
+                                     prediction_type="eps")
+        return direct_run, ni_run, n
+
+    def continuous(name):
+        """DPM-Solver++(2S) and DEIS t-AB order 3 (label t * 999)."""
+        sched = NISchedule.from_matrix(registry.derive(
+            name, n // 2 if name == "dpmsolverpp2s" else n), device="cuda")
+
+        def direct_run(labels):
+            eps = model(labels)
+            if name == "deis_tab":
+                return deis.get_sampler_t_ab(
+                    LinearVPSDE(), lambda x, t: eps(x, (t * 999.0).expand(B)),
+                    "t", 2.0, n, ab_order=3)(init)
+            ns = D.NoiseScheduleVP()
+            solver = D.DPMSolver(D.model_wrapper(
+                lambda x, t: eps(x, t * 999.0), ns), ns,
+                algorithm_type="dpmsolver++")
+            ts, x = np.linspace(1.0, 0.001, n // 2 + 1), init
+            for i in range(n // 2):       # the deriver's grid, r1 = 1/2
+                x, _ = solver.second_update(x, ts[i], ts[i + 1], r1=0.5)
+            return x
+
+        def ni_run(labels, scale=1.0):
+            eps = model(labels, scale)
+            return natural_inference(
+                lambda z, t: eps(z, (t * 999.0).expand(B)), sched, init,
+                prediction_type="eps")
+        return direct_run, ni_run, sched.num_step
+
+    rows = {}
+    for name, build in (("ddim", lambda: discrete("ddim")),
+                        ("ddpm", lambda: discrete("ddpm")),
+                        ("dpmsolverpp2s", lambda: continuous("dpmsolverpp2s")),
+                        ("deis_tab", lambda: continuous("deis_tab"))):
+        direct_run, ni_run, k1 = build()
+        ld, ln = [], []
+        with torch.no_grad(), drive(name, lambda: expect_counts(
+                per_fwd, len(ld) + len(ln), k1)):
+            dr = direct_run(ld)
+            ni = ni_run(ln)
+        with torch.no_grad():
+            ctl = ni_run([], 1.01)
+        same = len(ld) == len(ln) == n and all(
+            torch.equal(a, b) for a, b in zip(ld, ln))
+        err, err_ctl = rel_l2(ni, dr), rel_l2(ctl, dr)
+        rows[name] = dict(rel_l2_ni_vs_direct=err,
+                          control_time_1pct_off_rel_l2=err_ctl,
+                          model_calls=len(ln), same_labels=same,
+                          finite=bool(torch.isfinite(ni).all()))
+        print(f"  {name}: NI vs direct {err:.3e} (limit {NI_PAIR_TOL:g}), "
+              f"labels 1 % off {err_ctl:.3e}, {len(ln)} calls each, "
+              f"same labels {same}", flush=True)
+        if not (same and rows[name]["finite"] and err <= NI_PAIR_TOL
+                and err_ctl >= CONTROL_FACTOR * NI_PAIR_TOL):
+            raise AssertionError(f"samplers {name}: {rows[name]}")
+    return rows
+
+
+def sweep_cells(model_f32, drive, per_fwd):
+    """Two cells of ``apps.sweep`` on the card in bf16 over the same
+    randomized model, SWEEP_NUM images in batches of SWEEP_BATCH."""
+    import tempfile
+    from naturaldiffusion_tpu_torch.apps import sweep
+
+    rows = []
+    with tempfile.TemporaryDirectory() as d:
+        for family, only in SWEEP_CELLS:
+            calls = []
+            hook = model_f32.register_forward_hook(
+                lambda m, i, o: calls.append(i[0].shape[0]))
+            out = os.path.join(d, f"{family}.csv")
+            args = sweep.parse_args([
+                "--family", family, "--only", only, "--steps",
+                str(SAMPLERS_STEPS), "--num", str(SWEEP_NUM), "--batch",
+                str(SWEEP_BATCH), "--micro", str(SWEEP_BATCH), "--seed",
+                str(SEED + 52), "--out", out, "--device", "cuda"])
+            tr = time.perf_counter()
+            try:
+                with drive(f"sweep {family} {only}",
+                           lambda: expect_counts(per_fwd, len(calls))):
+                    row, = sweep.run(args, model=model_f32)
+            finally:
+                hook.remove()
+            wall = time.perf_counter() - tr
+            with open(out) as fh:
+                for line in fh.read().splitlines():
+                    print(f"  csv {family}: {line}", flush=True)
+            want_calls = SWEEP_NUM // SWEEP_BATCH * SAMPLERS_STEPS
+            if (len(calls) != want_calls or set(calls) != {SWEEP_BATCH}
+                    or row["finite"] is not True):
+                raise AssertionError(f"sweep {family} {only}: {row}, "
+                                     f"{len(calls)} forwards")
+            rows.append(dict(row, family=family, forwards=len(calls),
+                             call_s=wall, img_per_s_call=SWEEP_NUM / wall))
+    return rows
+
+
+def vp_pc(net16, net32, drive, per_fwd):
+    """``get_pc_sampler`` with the config's VPSDE at N = VP_PC_STEPS and its
+    sampling (euler_maruyama + none), bf16 kernels against f32 plain
+    versions on the card, with the bf16 plain-version and time-off
+    controls and the f32 kernels, as ve_slice."""
+    import torch
+    from naturaldiffusion_tpu_torch import configs
+    from naturaldiffusion_tpu_torch.samplers.pc import get_pc_sampler
+    from naturaldiffusion_tpu_torch.scaler import get_inverse_scaler
+    from naturaldiffusion_tpu_torch.sde import VPSDE, get_score_fn
+
+    cfg = configs.get_config(SAMPLERS_CONFIG)
+    full = configs.get_sde(cfg)
+    sde = VPSDE(beta_min=full.beta_min, beta_max=full.beta_max,
+                N=VP_PC_STEPS)
+    shape = (SAMPLERS_BATCH, 32, 32, 3)
+
+    def run(net, dtype, scale=1.0, calls=None):
+        def apply(x, lab):
+            if calls is not None:
+                calls.append(1)
+            return net(x.to(dtype), lab * scale)
+        score = get_score_fn(sde, apply, continuous=cfg.sde.continuous)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 53)
+        with torch.no_grad():
+            return get_pc_sampler(
+                sde, score, shape, predictor=cfg.sampling.predictor,
+                corrector=cfg.sampling.corrector, snr=cfg.sampling.snr,
+                n_steps=cfg.sampling.n_steps_each, device="cuda")(gen)
+
+    calls = []
+    tr = time.perf_counter()
+    with drive("vp_pc", lambda: expect_counts(per_fwd, len(calls))):
+        out, nfe = run(net16, torch.bfloat16, calls=calls)
+    wall = time.perf_counter() - tr
+    with plain_convs_and_norms():
+        want, _ = run(net32, torch.float32)
+        ctl_plain = rel_l2(run(net16, torch.bfloat16)[0], want)
+    err, err32 = rel_l2(out, want), rel_l2(run(net32, torch.float32)[0], want)
+    ctl_fault = rel_l2(run(net16, torch.bfloat16, 1.01)[0], want)
+    img = get_inverse_scaler(cfg.model.centered)(out)
+    res = dict(config=SAMPLERS_CONFIG, sde="vpsde",
+               predictor=cfg.sampling.predictor,
+               corrector=cfg.sampling.corrector, batch=SAMPLERS_BATCH,
+               steps=VP_PC_STEPS, steps_in_config=full.N,
+               reduction=f"N = {VP_PC_STEPS} PC steps instead of {full.N}",
+               nfe=nfe, model_calls=len(calls), wall_s=wall,
+               img_per_s=SAMPLERS_BATCH / wall,
+               rel_l2_bf16_vs_plain_f32=err, tol=VP_PC_TOL,
+               rel_l2_f32_vs_plain_f32=err32, tol_f32=VP_PC_F32_TOL,
+               control_plain_bf16_rel_l2=ctl_plain,
+               control_time_1pct_off_rel_l2=ctl_fault,
+               sample_abs_max=float(out.abs().max()))
+    print(f"  vp_pc: {json.dumps(res)}", flush=True)
+    if not (torch.isfinite(img).all() and len(calls) == VP_PC_STEPS
+            and err <= VP_PC_TOL and err32 <= VP_PC_F32_TOL):
+        raise AssertionError(f"samplers vp_pc: {res}")
+    return res
+
+
+def ode(net32, drive, per_fwd):
+    """``get_ode_sampler`` (RK45 over the probability-flow ODE) at
+    rtol = atol = ODE_RTOL, batch ODE_BATCH, f32: the kernels against the
+    plain versions on the card, beside the time-off control."""
+    import torch
+    from naturaldiffusion_tpu_torch.samplers.pc import get_ode_sampler
+    from naturaldiffusion_tpu_torch.sde import VPSDE, get_score_fn
+
+    sde = VPSDE()
+
+    def run(scale=1.0, calls=None):
+        def apply(x, lab):
+            if calls is not None:
+                calls.append(1)
+            return net32(x, lab * scale)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 54)
+        with torch.no_grad():
+            return get_ode_sampler(
+                sde, get_score_fn(sde, apply), (ODE_BATCH, 32, 32, 3),
+                rtol=ODE_RTOL, atol=ODE_RTOL, device="cuda")(gen)
+
+    calls = []
+    tr = time.perf_counter()
+    with drive("ode", lambda: expect_counts(per_fwd, len(calls))):
+        out, nfe = run(calls=calls)
+    wall = time.perf_counter() - tr
+    if nfe > ODE_MAX_NFE:
+        raise AssertionError(f"samplers ode: nfe {nfe} > {ODE_MAX_NFE}")
+    with plain_convs_and_norms():
+        want, nfe_plain = run()
+    ctl, nfe_ctl = run(1.01)
+    err, err_ctl = rel_l2(out, want), rel_l2(ctl, want)
+    res = dict(rtol=ODE_RTOL, atol=ODE_RTOL, rtol_jax_default=1e-5,
+               reduction=f"rtol = atol = {ODE_RTOL:g} instead of 1e-5",
+               batch=ODE_BATCH, nfe=nfe, model_calls=len(calls),
+               nfe_plain=nfe_plain, nfe_control=nfe_ctl, wall_s=wall,
+               rel_l2_kernels_vs_plain=err, tol=ODE_TOL,
+               control_time_1pct_off_rel_l2=err_ctl,
+               sample_abs_max=float(out.abs().max()))
+    print(f"  ode: {json.dumps(res)}", flush=True)
+    if not (torch.isfinite(out).all() and err <= ODE_TOL):
+        raise AssertionError(f"samplers ode: {res}")
+    return res
+
+
+def phase_samplers(model_f32, n_plain, n_gn, n_k6, smi):
+    """The sampler families over the CIFAR model as
+    ``vp/cifar10_ddpmpp_continuous``: (a) NI against four direct
+    recursions, f32; (b) two ``apps.sweep`` cells in bf16; (c) VP PC
+    sampling; (d) the ODE sampler.  Its launches are the drives' (``Drive``)."""
+    import torch
+    t0 = time.perf_counter()
+    drive = Drive()
+    net32 = copy.deepcopy(model_f32).to("cuda").eval()
+    f32_b8 = per_forward_counts(net32, torch.float32, SAMPLERS_BATCH)
+    bf16_b64 = {"fused_weighted_sum": 0, "conv3x3": n_plain,
+                "conv3x3_gn": n_gn, "conv3x3_tiled": 0,
+                "fused_group_norm": n_k6}
+    net16 = copy.deepcopy(model_f32).to(device="cuda", dtype=torch.bfloat16)
+    bf16_b8 = per_forward_counts(net16, torch.bfloat16, SAMPLERS_BATCH)
+    f32_b2 = per_forward_counts(net32, torch.float32, ODE_BATCH)
+
+    ta = time.perf_counter()
+    pairs = ni_pairs(net32, drive, f32_b8)
+    # apps.validate on the card: the six direct samplers against NI on its
+    # toy denoisers, float32 through K1, its own 1e-4 check
+    from naturaldiffusion_tpu_torch.apps import validate
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = validate.main(["--steps", str(SAMPLERS_STEPS), "--device",
+                            "cuda"])
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"  validate: {line}", flush=True)
+    if rc != 0 or len(lines) != len(validate._DIRECT):
+        raise AssertionError(f"samplers: apps.validate rc {rc}")
+    tb = time.perf_counter()
+    cells = sweep_cells(model_f32, drive, bf16_b64)
+    tc = time.perf_counter()
+    pc_row = vp_pc(net16, net32, drive, bf16_b8)
+    td = time.perf_counter()
+    ode_row = ode(net32, drive, f32_b2)
+    del net16, net32
+    torch.cuda.empty_cache()
+    phase("samplers", t0, config=SAMPLERS_CONFIG, card=smi,
+          params=sum(p.numel() for p in model_f32.parameters()),
+          ni_pairs=pairs, ni_pair_tol=NI_PAIR_TOL, validate_app=lines,
+          sweep=cells, vp_pc=pc_row,
+          ode=ode_row, per_forward=dict(f32_b8=f32_b8, bf16_b64=bf16_b64,
+                                        bf16_b8=bf16_b8, f32_b2=f32_b2),
+          seconds_by_part=dict(ni_pairs=tb - ta, sweep=tc - tb,
+                               vp_pc=td - tc,
+                               ode=time.perf_counter() - td),
+          launches=drive.total)
+    return drive.total
+
+
 def bench_counters():
     from naturaldiffusion_tpu_torch.ops import conv3x3 as C
     from naturaldiffusion_tpu_torch.ops import group_norm as G
@@ -1060,7 +1467,8 @@ def bench_eager_s(b, chunks, seed):
 
 def phase_bench(n_plain, n_gn, n_k6, flops):
     """The port bench on one ``Bench`` at its defaults: the launch counts
-    of its warm-up and capture, its timed graphed dispatches, one profiled
+    of its warm-up and capture, its BENCH_DISPATCHES timed graphed
+    dispatches, one profiled
     dispatch of ``BENCH_CHUNKS_TRACED`` replays (its busy share and the
     device launches of each kernel in the trace), eager chunks timed as the
     control, and one chunk graphed against eager with random weights.
@@ -1098,7 +1506,8 @@ def phase_bench(n_plain, n_gn, n_k6, flops):
     try:
         with cl.redirect_stdout(buf):
             graphed = B.measure(b, flops, trace_dir=logdir,
-                                trace_chunks=BENCH_CHUNKS_TRACED)
+                                trace_chunks=BENCH_CHUNKS_TRACED,
+                                dispatches=BENCH_DISPATCHES)
         traced = whole_trace_launches(B, b, logdir, graphed, want_traced)
     finally:
         shutil.rmtree(logdir, ignore_errors=True)
@@ -1119,7 +1528,8 @@ def phase_bench(n_plain, n_gn, n_k6, flops):
 
     # the eager control on the same bench, timed as a dispatch is
     bench_eager_s(b, 1, 5)                          # warm-up
-    eager_s = [bench_eager_s(b, BENCH_CHUNKS_EAGER, 6 + i) for i in range(3)]
+    eager_s = [bench_eager_s(b, BENCH_CHUNKS_EAGER, 6 + i)
+               for i in range(BENCH_EAGER_RUNS)]
     eager_ips = BENCH_CHUNKS_EAGER * BATCH / statistics.median(eager_s)
     lap("eager")
 
@@ -1474,7 +1884,8 @@ def phase_routes(model_bf16, model_f32, n_plain, n_gn, n_int8):
 def bench_form(B, net, flops, conv, quant, mods, total, want_traced):
     """One bench form on ``net``: its build (eager warm-up and capture)
     and its run counted, the JSON line of its timed dispatch (one of
-    ``total`` images if that is the full bench, else 5) with, unless
+    ``total`` images if that is the full bench, else the median of
+    BENCH_FORM_DISPATCHES) with, unless
     ``want_traced`` is None, a profiled dispatch of BENCH_CHUNKS_TRACED
     replays (the card's busy share) and its device launches
     (``whole_trace_launches`` against ``want_traced``), and one chunk
@@ -1497,7 +1908,8 @@ def bench_form(B, net, flops, conv, quant, mods, total, want_traced):
         with cl.redirect_stdout(buf):
             rec = B.measure(b, flops, trace_dir=logdir,
                             trace_chunks=BENCH_CHUNKS_TRACED,
-                            dispatches=1 if total == BENCH_TOTAL else 5)
+                            dispatches=1 if total == BENCH_TOTAL
+                            else BENCH_FORM_DISPATCHES)
         traced = (whole_trace_launches(B, b, logdir, rec, want_traced)
                   if trace else None)
     finally:
@@ -1985,7 +2397,7 @@ def phase_dit_slice(model32, smi):
         torch.cuda.synchronize()
         zero_counts(counters)
         walls = []
-        for i in range(3):
+        for i in range(DIT_TIMED_RUNS):
             tr = time.perf_counter()
             out = run(z0, y)
             torch.cuda.synchronize()
@@ -2872,6 +3284,7 @@ def main(argv=None) -> int:
     del model_bf16
     phase_forward(model)
     launches, ips = phase_slice(model, n_plain, n_gn, n_k6, smi)
+    sampler_launches = phase_samplers(model, n_plain, n_gn, n_k6, smi)
     del model
     bench_launches, bench_traced, bench_lines = phase_bench(
         n_plain, n_gn, n_k6, bench_flops)
@@ -2912,6 +3325,7 @@ def main(argv=None) -> int:
                "dit_slice": dit_runs["float"]["launches"],
                "dit_slice_w8": dit_runs["w8"]["launches"],
                "ve_slice": ve_launches,
+               "samplers": sampler_launches,
                "attention_bench": attn_launches,
                "fused_act": k8_launches}
     # each kernel's count from the path that exercises it: K1-K3 the

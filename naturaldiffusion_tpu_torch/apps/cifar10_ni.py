@@ -2,22 +2,28 @@
 ``naturaldiffusion_tpu/apps/cifar10_ni.py``, after
 ``src/CIFAR10NaturalInference.py:241-317``).
 
-The NCSN++ VP backbone with random weights from ``--seed`` (same FLOPs as
-``checkpoint_8.pth``), a Natural-Inference matrix (a learned
-``weights/step_*_weight_*.npz`` via ``--weights``, else the derived DDPM
-matrix at ``--steps``), and N images in micro-batches.  Prints img/s.
+The NCSN++ VP backbone (a converted ``checkpoint_8.pth`` via ``--ckpt``,
+else random weights from ``--seed``: the same FLOPs), a Natural-Inference
+matrix (a learned ``weights/step_*_weight_*.npz`` via ``--weights``, else
+the derived DDPM matrix at ``--steps``), and N images in micro-batches.
+Prints img/s, and writes to ``--outdir`` the first 64 samples as a PNG grid
+(PIL), all samples as ``samples_{prov}.npy`` and ``meta.json`` with the
+weights' provenance (``prov``: ``converted`` or ``random``).
 
 Run: ``python -m naturaldiffusion_tpu_torch.apps.cifar10_ni --num 256``.
-``--ckpt``, ``--fid-stats`` and ``--outdir`` are not ported yet.
+``--fid-stats`` waits for the port of ``eval/fid.py``.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import json
+import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from ..coeffs import registry
@@ -35,7 +41,11 @@ def make_sampler(model, matrix: CoeffMatrix, *, micro: int = 64,
     converts it to x0 with f32 accumulation.  ``init`` [B, 32, 32, 3] runs
     in chunks of ``micro`` images, one after another, when ``micro``
     divides B and is smaller; ``noises`` [n, B, ...] or ``generator``
-    supply the injected noises of a stochastic matrix."""
+    supply the injected noises of a stochastic matrix.
+    ``run.with_params(state)`` loads another state (a port model's
+    ``state_dict()``: the same names and shapes, or ``load_state_dict``
+    raises) into the sampler's copy in place, cast to ``dtype``, and
+    returns ``run``."""
     dev = resolve_device(device)
     net = copy.deepcopy(model).to(device=dev, dtype=dtype).eval()
     sched = NISchedule.from_matrix(matrix, device=dev)
@@ -56,6 +66,11 @@ def make_sampler(model, matrix: CoeffMatrix, *, micro: int = 64,
                 model_dtype=dtype))
         return torch.cat(outs)
 
+    def with_params(state):
+        net.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+        return run
+
+    run.with_params = with_params
     return run
 
 
@@ -70,6 +85,8 @@ def main(argv=None) -> int:
     p.add_argument("--micro", type=int, default=64,
                    help="images per chunk inside a batch (0 = whole batch)")
     p.add_argument("--seed", type=int, default=888)   # the reference seed
+    p.add_argument("--ckpt", default=None, help="torch checkpoint_8.pth")
+    p.add_argument("--outdir", default="samples")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
@@ -77,6 +94,10 @@ def main(argv=None) -> int:
     matrix = (CoeffMatrix.load(args.weights) if args.weights
               else registry.derive("ddpm", args.steps))
     model = NCSNpp(CIFAR10_DDPMPP_CONTINUOUS, device=dev, seed=args.seed)
+    if args.ckpt:
+        from ..models.convert import fill_from_torch, load_torch_checkpoint
+        unused = fill_from_torch(model, load_torch_checkpoint(args.ckpt))
+        print(f"loaded {args.ckpt} ({len(unused)} unused torch keys)")
     run = make_sampler(model, matrix, micro=args.micro, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
@@ -86,6 +107,7 @@ def main(argv=None) -> int:
 
     done = timed = 0
     t0 = None
+    images = []
     while done < args.num:
         b = min(args.batch, args.num - done)
         init = torch.randn((b, 32, 32, 3), generator=gen, device=dev)
@@ -93,6 +115,7 @@ def main(argv=None) -> int:
         sync()
         if not torch.isfinite(out).all():
             raise FloatingPointError("non-finite samples")
+        images.append(out.float().cpu().numpy())
         done += b
         if t0 is None:              # the first batch warms up
             t0 = time.perf_counter()
@@ -100,6 +123,23 @@ def main(argv=None) -> int:
             timed += b
         rate = timed / (time.perf_counter() - t0) if timed else float("nan")
         print(f"{done}/{args.num} ({rate:.1f} img/s steady)", flush=True)
+    wall = time.perf_counter() - t0
+    images = np.concatenate(images)
+
+    # the weights' provenance in every artifact's name and in a sidecar
+    prov = "converted" if args.ckpt else "random"
+    os.makedirs(args.outdir, exist_ok=True)
+    grid = os.path.join(args.outdir, f"grid_{prov}.png")
+    samples = os.path.join(args.outdir, f"samples_{prov}.npy")
+    from ..utils.plotting import save_image_grid
+    save_image_grid(images[:64], grid)
+    np.save(samples, images)
+    with open(os.path.join(args.outdir, "meta.json"), "w") as fh:
+        json.dump({"weights": prov, "ckpt": args.ckpt, "num": args.num,
+                   "steps": matrix.num_step, "seed": args.seed,
+                   "wall_s": round(wall, 2)}, fh, indent=1)
+    print(f"wrote {grid} and {samples} ({args.num} images, {wall:.1f}s, "
+          f"weights={prov})", flush=True)
     return 0
 
 

@@ -6,13 +6,14 @@ Runs (a) the original skip-sampling recursion (DDPM ancestral or DDIM) and
 same seed and CFG wrapper, and reports ``max|original - NI|`` against
 ``--tol`` times the latent scale: the reference's "You'll observe that
 there is no difference" check (``:375-391``), made numerical.  Runs on the
-card by default, in float32, with random weights (the zero adaLN-Zero
-layers perturbed so the network carries signal).
+card by default, in float32, with the weights of ``--ckpt`` (the release
+``DiT-XL-2-256x256.pt`` layout) or random ones (the zero adaLN-Zero layers
+perturbed so the network carries signal).
 
     python -m naturaldiffusion_tpu_torch.apps.validate_dit --steps 10
 
-``--ckpt`` and ``--vae`` (the checkpoint and decoding the two trajectories
-to images) wait for ``.pth`` loading and the VAE (ROADMAP.md, Queue A).
+``--vae`` (decoding the two trajectories to images) waits for the VAE
+(ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -36,10 +37,20 @@ SMALL = DiTConfig(input_size=8, patch_size=2, in_channels=4, hidden_size=64,
 
 
 @torch.no_grad()
-def build_model(cfg: DiTConfig, device="cuda", seed: int = 0) -> DiT:
-    """A random DiT whose all-zero matrices (the adaLN-Zero layers and the
-    final linear) get 0.02 N(0, 1), as the JAX app perturbs them."""
+def build_model(cfg: DiTConfig, device="cuda", seed: int = 0,
+                ckpt: str | None = None) -> DiT:
+    """The DiT of ``ckpt`` (a torch checkpoint through
+    ``convert.fill_from_torch`` and ``dit_torch_path_map``), or a random
+    one whose all-zero matrices (the adaLN-Zero layers and the final
+    linear) get 0.02 N(0, 1), as the JAX app perturbs them."""
     model = DiT(cfg, device=device, seed=seed)
+    if ckpt:
+        from ..models.convert import fill_from_torch, load_torch_checkpoint
+        from ..models.dit import dit_torch_path_map
+        unused = fill_from_torch(model, load_torch_checkpoint(ckpt),
+                                 path_map=dit_torch_path_map)
+        print(f"loaded {ckpt} ({len(unused)} unused keys)", flush=True)
+        return model
     gen = torch.Generator(device=model.pos_embed.device).manual_seed(7)
     for prm in model.parameters():
         if prm.dim() >= 2 and not bool(prm.any()):
@@ -103,6 +114,7 @@ def main(argv=None) -> int:
     p.add_argument("--alg", choices=("ddpm", "ddim"), default="ddim")
     p.add_argument("--steps", type=int, default=24)
     p.add_argument("--model", default="DiT-XL/2")
+    p.add_argument("--ckpt", default=None, help="DiT-XL-2-256x256.pt")
     p.add_argument("--small", action="store_true",
                    help="tiny random DiT (smoke mode)")
     p.add_argument("--cfg-scale", type=float, default=4.0)
@@ -114,7 +126,7 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     cfg = SMALL if args.small else DIT_CONFIGS[args.model]
-    model = build_model(cfg, device=dev)
+    model = build_model(cfg, device=dev, ckpt=args.ckpt)
     diff, scale = validate(model, alg=args.alg, steps=args.steps,
                            cfg_scale=args.cfg_scale, batch=args.batch,
                            seed=args.seed)

@@ -22,6 +22,7 @@ derivation site, e.g. ``src/AnalyzeDDPMDDIM.py:226-234``).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -70,6 +71,12 @@ class CoeffMatrix:
 
     # -- io -----------------------------------------------------------------
 
+    def save(self, path: str) -> None:
+        """The reference's npz triple (``src/Utils.py:49``)."""
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        np.savez(path, past_xstart_coeff=self.x0,
+                 past_epsilon_coeff=self.eps, node_coeff=self.node)
+
     @classmethod
     def load(cls, path: str) -> "CoeffMatrix":
         with np.load(path) as f:
@@ -82,3 +89,21 @@ class CoeffMatrix:
             # populated; pad the trailing injected-noise column
             eps = np.concatenate([eps, np.zeros((eps.shape[0], 1))], axis=1)
         return cls(x0=x0, eps=eps, node=node)
+
+    def save_csv(self, path: str) -> None:
+        """Human-readable CSV mirror (the layout of ``src/Utils.py:36-45``):
+        the x0 matrix rounded to 3 decimals with node-time row and column
+        labels and a trailing row-sum column."""
+        n = self.num_step
+        if self.node[:, 0].mean() > 1:
+            names = ["%03d" % t for t in self.node[:, 0]]
+        else:
+            names = ["%0.3f" % t for t in self.node[:, 0]]
+        lines = ["," + ",".join(names[:-1]) + ",sum"]
+        sums = self.x0.sum(axis=1)
+        for i in range(n):
+            row = ",".join("%g" % v for v in self.x0[i].round(3))
+            lines.append(f"{names[i + 1]},{row},{sums[i].round(3):g}")
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as fh:
+            fh.write("\n".join(lines) + "\n")

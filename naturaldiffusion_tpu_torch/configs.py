@@ -1,7 +1,7 @@
-"""Config presets of the port (the VE NCSN++ part of
+"""Config presets of the port (the NCSN++ part of
 ``naturaldiffusion_tpu/configs.py``): ``get_config(name)`` lifts an entry of
 :mod:`.configs_zoo` into typed model, SDE and sampling configs, and
-:func:`get_sde` builds its SDE."""
+:func:`get_sde` builds its SDE (VE, VP or sub-VP)."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ import dataclasses
 
 from .configs_zoo import ZOO
 from .models.ncsnpp import NCSNppConfig
-from .sde import VESDE
+from .sde import SDE, SubVPSDE, VESDE, VPSDE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,6 +18,8 @@ class SDEConfig:
     continuous: bool = True
     sigma_min: float = 0.01
     sigma_max: float = 50.0
+    beta_min: float = 0.1
+    beta_max: float = 20.0
     num_scales: int = 1000
 
 
@@ -54,9 +56,13 @@ def get_config(name: str) -> ExperimentConfig:
     return CONFIGS[name]
 
 
-def get_sde(cfg: ExperimentConfig) -> VESDE:
-    """The config's SDE (VE only, as the ported entries)."""
-    if cfg.sde.sde != "vesde":
-        raise NotImplementedError(f"sde={cfg.sde.sde!r} is not ported yet")
-    return VESDE(sigma_min=cfg.sde.sigma_min, sigma_max=cfg.sde.sigma_max,
-                 N=cfg.sde.num_scales)
+def get_sde(cfg: ExperimentConfig) -> SDE:
+    """The config's SDE, with its N = ``num_scales``."""
+    s = cfg.sde
+    if s.sde == "vesde":
+        return VESDE(sigma_min=s.sigma_min, sigma_max=s.sigma_max,
+                     N=s.num_scales)
+    if s.sde in ("vpsde", "subvpsde"):
+        cls = VPSDE if s.sde == "vpsde" else SubVPSDE
+        return cls(beta_min=s.beta_min, beta_max=s.beta_max, N=s.num_scales)
+    raise ValueError(f"unknown sde {s.sde!r}")

@@ -1,5 +1,16 @@
-"""Carry the JAX package's weights (NCSN++, DiT) into the port's models,
-or fill them from a seed."""
+"""Carry weights into the port's models: a flax tree of the JAX package
+(:func:`load_jax_params`), a torch checkpoint of the reference
+(:func:`load_torch_checkpoint` + :func:`fill_from_torch`, the port of
+``naturaldiffusion_tpu/models/convert.py``), or random from a seed
+(:func:`randomize_`).
+
+The port keeps the flax names and layouts, so a torch checkpoint takes
+JAX's transposes (torch -> port):
+  Conv2d  weight [O, I, kh, kw]  -> kernel [kh, kw, I, O]
+  Linear  weight [O, I]          -> kernel [I, O]
+  GroupNorm/LayerNorm weight     -> scale
+  NIN.W [in, out], biases, embeddings: unchanged
+"""
 
 from __future__ import annotations
 
@@ -78,3 +89,126 @@ def randomize_(model, seed: int):
                     math.prod(p.shape[:-1]))
             p.copy_(v)
     return model
+
+
+def _to_numpy(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def strip_prefixes(state_dict: Mapping[str, object],
+                   prefixes=("module.", "model.")) -> dict:
+    """Drop the DataParallel / EMA wrapper prefixes (the reference wraps
+    the model in ``torch.nn.DataParallel``, ``models/utils.py:93``)."""
+    out = {}
+    for k, v in state_dict.items():
+        for p in prefixes:
+            if k.startswith(p):
+                k = k[len(p):]
+        out[k] = v
+    return out
+
+
+# buffers of the reference's modules, which its EMA does not track
+_BUFFERS = ("sigmas", "num_batches_tracked", "running_mean", "running_var")
+
+
+def load_torch_checkpoint(path: str) -> dict:
+    """A torch ``.pth`` as a flat name -> numpy dict (on the CPU).
+
+    The reference's training state ``{model, ema, optimizer, step}``
+    (``deps/score_sde_pytorch/utils.py:7-28``) gives the EMA
+    ``shadow_params``: they follow ``model.parameters()``, the state dict's
+    order without its buffers, which come from ``model``; a shadow whose
+    shape is not its parameter's raises (misalignment).  A DiT release
+    ``{model, ema}`` of plain state dicts gives ``ema``; ``{model}`` gives
+    ``model``; anything else is a bare state dict.  ``module.`` and
+    ``model.`` prefixes are stripped.  Loads with ``weights_only=True``:
+    tensors and plain containers, no code."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt, dict) and "ema" in ckpt:
+        ema = ckpt["ema"]
+        if "shadow_params" in ema:
+            model_sd = strip_prefixes(ckpt["model"])
+            shadows = list(ema["shadow_params"])
+            out, si = {}, 0
+            for k, v in model_sd.items():
+                if k.split(".")[-1] in _BUFFERS:
+                    out[k] = _to_numpy(v)
+                    continue
+                if si >= len(shadows) or \
+                        tuple(shadows[si].shape) != tuple(v.shape):
+                    got = tuple(shadows[si].shape) if si < len(shadows) \
+                        else "none left"
+                    raise ValueError(f"EMA shadow/param misalignment at {k}: "
+                                     f"{got} vs {tuple(v.shape)}")
+                out[k] = _to_numpy(shadows[si])
+                si += 1
+            return out
+        ckpt = ema
+    if isinstance(ckpt, dict) and "model" in ckpt:
+        ckpt = ckpt["model"]
+    return {k: _to_numpy(v) for k, v in strip_prefixes(ckpt).items()}
+
+
+def _torch_leaf_and_transform(path: tuple[str, ...]):
+    """A port (flax) leaf name -> (torch leaf name, numpy transform)."""
+    leaf = path[-1]
+    if leaf == "kernel":
+        return "weight", lambda a: (a.transpose(2, 3, 1, 0) if a.ndim == 4
+                                    else a.transpose(1, 0))
+    if leaf in ("scale", "embedding"):
+        return "weight", lambda a: a
+    if leaf == "weight":              # FIRConv2d raw weight, stays 4D
+        return "weight", lambda a: (a.transpose(2, 3, 1, 0) if a.ndim == 4
+                                    else a)
+    return leaf, lambda a: a          # bias, W, b, ...
+
+
+def ncsnpp_torch_path_map(path: tuple[str, ...]) -> str:
+    """The default path map: names joined by ``.``, each ``m{i}`` of the
+    NCSN++ walk as ``all_modules.{i}``."""
+    parts = []
+    for seg in path:
+        if seg.startswith("m") and seg[1:].isdigit():
+            parts.extend(["all_modules", seg[1:]])
+        else:
+            parts.append(seg)
+    return ".".join(parts)
+
+
+def fill_from_torch(model, state_dict: Mapping[str, object], path_map=None,
+                    root: str = "") -> list[str]:
+    """Fill ``model`` (the port's ``NCSNpp``, its walk in ``layers``, or
+    ``DiT``) in place from a torch state dict, e.g. from
+    :func:`load_torch_checkpoint`.
+
+    Each parameter's module path goes through ``path_map`` (default
+    :func:`ncsnpp_torch_path_map`; DiT's is ``models.dit.
+    dit_torch_path_map``) to a torch key under ``root``, with JAX's
+    transposes.  Raises ``KeyError`` on a missing key and ``ValueError`` on
+    a wrong shape; nothing is written unless every parameter is found.
+    Returns the unused torch keys."""
+    pm = path_map or ncsnpp_torch_path_map
+    module = model.layers if isinstance(getattr(model, "layers", None),
+                                        torch.nn.Module) else model
+    values, used = {}, set()
+    for name, p in module.named_parameters():
+        path = tuple(name.split("."))
+        torch_leaf, tf = _torch_leaf_and_transform(path)
+        key = pm(path[:-1])
+        key = f"{root}{key}.{torch_leaf}" if key else f"{root}{torch_leaf}"
+        if key not in state_dict:
+            raise KeyError(f"port parameter {name} -> missing torch key "
+                           f"{key!r}")
+        arr = tf(_to_numpy(state_dict[key]))
+        if arr.shape != tuple(p.shape):
+            raise ValueError(f"{key}: torch {arr.shape} vs port "
+                             f"{tuple(p.shape)} at {name}")
+        values[name] = arr
+        used.add(key)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            p.copy_(torch.from_numpy(np.ascontiguousarray(values[name])))
+    return [k for k in state_dict if k not in used]

@@ -20,8 +20,8 @@ JAX package leaves them to XLA.  Dense layers compute in the promoted type
 of input and weights, LayerNorm keeps f32 statistics with flax's
 ``E[x^2] - E[x]^2`` variance, and GELU is the tanh form, all as flax does.
 Inference only: label dropout, ``token_constraint`` and ``mesh`` are not
-ported; ``dit_torch_path_map`` (``.pth`` loading) waits for ROADMAP.md's
-Queue A item 3.
+ported.  ``dit_torch_path_map`` maps the names to a DiT release
+checkpoint's for ``convert.fill_from_torch``.
 """
 
 from __future__ import annotations
@@ -403,3 +403,26 @@ DIT_CONFIGS: dict[str, DiTConfig] = {
     "DiT-S/4": _cfg(depth=12, hidden_size=384, patch_size=4, num_heads=6),
     "DiT-S/8": _cfg(depth=12, hidden_size=384, patch_size=8, num_heads=6),
 }
+
+
+def dit_torch_path_map(path: tuple[str, ...]) -> str:
+    """Flax (and port) module path -> torch dotted key of the DiT release
+    checkpoints (``DiT-XL-2-256x256.pt``), for
+    :func:`.convert.fill_from_torch` (JAX ``models/dit.py:357``)."""
+    parts = []
+    for seg in path:
+        if seg.startswith("blocks_"):
+            parts.append("blocks." + seg[len("blocks_"):])
+        elif seg == "x_embedder_proj":
+            parts.append("x_embedder.proj")
+        elif seg == "t_embedder_mlp_0":
+            parts.append("t_embedder.mlp.0")
+        elif seg == "t_embedder_mlp_2":
+            parts.append("t_embedder.mlp.2")
+        elif seg == "y_embedder_embedding_table":
+            parts.append("y_embedder.embedding_table")
+        elif seg == "adaLN_modulation_1":
+            parts.append("adaLN_modulation.1")
+        else:
+            parts.append(seg)
+    return ".".join(parts)

@@ -100,6 +100,25 @@ dd = NCSNpp(NCSNppConfig(**dict({SMALL!r}, resblock_type="ddpm")),
 hoisted = ncsnpp_schedule_biases(dd, torch.tensor([10.0]))
 assert torch.isfinite(dd(torch.randn(1, 8, 8, 3), torch.tensor([10.0]),
                          mods={{k: v[0] for k, v in hoisted.items()}})).all()
+from naturaldiffusion_tpu_torch.apps import analyze, sweep, validate
+from naturaldiffusion_tpu_torch.models import convert
+from naturaldiffusion_tpu_torch.samplers import deis, direct, dpm_solver
+from naturaldiffusion_tpu_torch.samplers.pc import get_ode_sampler
+from naturaldiffusion_tpu_torch.utils import plotting
+vp = configs.get_sde(configs.get_config("vp/cifar10_ddpmpp_continuous"))
+xv, nfe = get_ode_sampler(vp, lambda x, t: -x, (1, 4), rtol=1e-2, atol=1e-2,
+                          device="cpu")(torch.Generator())
+assert torch.isfinite(xv).all() and nfe > 1
+assert validate.validate("ddim", 3, device="cpu") < 1e-4
+ns = dpm_solver.NoiseScheduleVP()
+dpm = dpm_solver.DPMSolver(dpm_solver.model_wrapper(lambda x, t: x * 0.1, ns),
+                           ns)
+assert torch.isfinite(dpm.sample(torch.randn(1, 4), steps=3)).all()
+from naturaldiffusion_tpu_torch.schedules import LinearVPSDE
+assert torch.isfinite(deis.get_sampler_t_ab(
+    LinearVPSDE(), lambda x, t: x * 0.1, "t", 2.0, 3)(torch.randn(1, 4))).all()
+assert sweep.deis_cells() and convert.strip_prefixes({{"module.a": 1}}) == {{"a": 1}}
+assert callable(analyze.analyze) and callable(plotting.save_image_grid)
 import numpy as np
 for name in ("deis_tab", "dpmsolver3s", "flow_euler", "ode_heun"):
     m = registry.derive(name, 4)
@@ -153,6 +172,19 @@ def test_ve_entry_points_refuse_a_missing_card(monkeypatch):
         NCSNpp(configs.get_config("ve/cifar10_ncsnpp_continuous").model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_pc_sampler(VESDE(N=2), lambda x, t: x, (1, 8, 8, 3))
+
+
+def test_sampler_entry_points_refuse_a_missing_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from naturaldiffusion_tpu_torch.apps import sweep, validate
+    from naturaldiffusion_tpu_torch.samplers.pc import get_ode_sampler
+    from naturaldiffusion_tpu_torch.sde import VPSDE
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_ode_sampler(VPSDE(), lambda x, t: x, (1, 8, 8, 3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        validate.main(["--alg", "ddim", "--steps", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep.main(["--family", "deis", "--num", "1"])
 
 
 def test_dit_entry_points_refuse_a_missing_card(monkeypatch):

@@ -126,9 +126,12 @@ def test_pc_sampler_draws_from_its_generator_and_rejects_unported():
     b, _ = sampler(torch.Generator().manual_seed(7))
     c, _ = sampler(torch.Generator().manual_seed(8))
     assert torch.equal(a, b) and not torch.equal(a, c)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pc.get_pc_sampler(sde_, None, SHAPE, predictor="euler_maruyama",
-                          device="cpu")
+    # every predictor and corrector of the JAX package is ported; a name
+    # neither package registers raises
+    for kw in (dict(predictor="euler_maruyama"), dict(corrector="ald")):
+        pc.get_pc_sampler(sde_, None, SHAPE, device="cpu", **kw)
+    with pytest.raises(KeyError, match="unknown predictor"):
+        pc.get_pc_sampler(sde_, None, SHAPE, predictor="nope", device="cpu")
 
 
 @pytest.mark.parametrize("centered", [True, False])
