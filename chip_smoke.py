@@ -50,8 +50,24 @@ printed as one line with its numbers and seconds as it ends:
            config's VPSDE at N = 10 and its euler_maruyama predictor, bf16
            against f32 plain versions on the card beside two controls;
            (d) ``get_ode_sampler`` at rtol = atol = 1e-3, f32, the kernels
-           against the plain versions.  Each drive's launches are checked
-           against its forwards' (and NI steps') counts.
+           against the plain versions after as many model calls, beside
+           its 1 %-off control.  Each drive's launches are checked against
+           its forwards' (and NI steps') counts.
+  eval     the evaluation modules over the same weights: (a) the FID
+           Inception (every leaf random) in f32 on the card against the
+           CPU at 32x32, 48x64 and 320x336 (the antialiased resize), pool
+           features and logits, then timed at batch 256; (b)
+           ``apps.fid_selfcheck.main`` over the full-width CIFAR model at
+           2,048 images and 256 features, its sampling one CUDA-graph
+           replay a micro-batch: the app's pass rule, its CSV row, and the
+           K1-K3 and K6 launches of the warm-up and capture; (c) PC
+           inpainting and colorization (``samplers.controllable``) as the
+           VP config at N = 10, batch 8, f32: the kernels against the plain
+           versions with the same noises beside a 1 %-off time control,
+           the known pixels and the luminance against their inputs, each
+           drive's launches; (d) ``apps.quant_accuracy`` at batch 16 in
+           ``int8_static`` and ``int8`` under route 0: its report, a
+           non-zero int8-against-bf16 gap, Q1's launches.
   bench    the port bench, ``apps.bench``, on one ``Bench`` at its
            defaults (1024 images a dispatch in 16 replays of a CUDA graph
            of one 64-image 10-step run): the wrappers' launch counts around
@@ -265,13 +281,60 @@ VP_PC_TOL = 3e-2
 VP_PC_F32_TOL = 1e-3
 # the probability-flow ODE sampler at rtol = atol = 1e-3 (JAX's default
 # 1e-5), batch 2, f32: the kernels against the plain versions on the card,
-# relative L2; adaptive steps may take other step sizes on either side.
-# Sound runs read 4.2e-7 to 9.2e-7 on an H100 with the same 85 model
-# calls on both sides; the time 1 % off reads 1.0e-2, at the limit, so
-# this check sees only a gross fault (the NI pairs hold the f32 kernels
-# to 1e-3 beside 5e-2 controls).  More than ODE_MAX_NFE model evaluations
+# relative L2, after the same number of model calls on both sides (the
+# adaptive steps of a sound run accept the same step sizes, as the NI pairs
+# see the same labels).  Sound runs read 4.0e-7 to 9.2e-7 on an H100 with
+# 85 calls on both sides; the time 1 % off reads 1.02e-2, and must read at
+# least CONTROL_FACTOR times the limit, so 1e-4 (over 100x the sound
+# readings) sees a 1 % fault.  More than ODE_MAX_NFE model evaluations
 # fails the phase
-ODE_RTOL, ODE_BATCH, ODE_TOL, ODE_MAX_NFE = 1e-3, 2, 1e-2, 500
+ODE_RTOL, ODE_BATCH, ODE_TOL, ODE_MAX_NFE = 1e-3, 2, 1e-4, 500
+
+# the eval phase.  (a) The FID Inception (pytorch-fid's InceptionV3, every
+# leaf random, its BatchNorms too) in f32 on the card against the CPU, at
+# these [N, H, W] inputs: CIFAR images, a rectangle, and one larger than
+# 299 (the antialiased resize); relative L2 of pool features and logits:
+# ~95 convs and a dense head of f32 sums in other orders, TF32 off, as
+# FORWARD_TOL; sound runs read 1.4e-7 (pool) and 3.5e-7 to 5.3e-7
+# (logits) on an H100.  Its features are then timed at EVAL_FEAT_BATCH
+EVAL_INCEPTION_SIZES = ((4, 32, 32), (1, 48, 64), (1, 320, 336))
+INCEPTION_TOL = 1e-4
+EVAL_FEAT_BATCH = 256
+# (b) apps.fid_selfcheck on the full-width CIFAR model (random weights, its
+# graphed sampling), cut from 50,000 images and 2048 features to 2,048 and
+# 256 (the run's time limit: 4,096 images took 18.7 s of the phase on an
+# H100, 2,048 9.6 s); the pass rule is the app's (self FID < 2, shifted /
+# self > 50): 2,048 images read a ratio of 15,790 there, 4,096 30,830
+EVAL_SELFCHECK_ARGS = ("--num", "2048", "--batch", "1024", "--micro", "64",
+                       "--feat-dim", "256", "--feat-batch", "256")
+# the graphed branch of apps.cifar10_ni.make_sampler, which the self-check
+# samples through, against its eager branch over the same model (bf16,
+# 10-step DDPM NI, BATCH-image micro-batches) on EVAL_GRAPH_CHUNKS
+# micro-batches of one init with the same explicit noises, each
+# micro-batch's relative L2 at the bench's BENCH_GRAPH_TOL (the same run:
+# the bench holds its own graph there); BENCH_FAULT_CONV zeroed in the
+# sampler's copy must move every micro-batch past it, and the generator's
+# noises, drawn per replay, must move two micro-batches of one init apart
+# by as much
+EVAL_GRAPH_CHUNKS = 2
+# (c) PC inpainting and colorization over the CIFAR model as
+# SAMPLERS_CONFIG, with its sampling (euler_maruyama + none) at N = 10 of
+# 1000 (the reverse-diffusion and Langevin steps need N >= 20: the VP
+# discretisation's largest beta, beta_max / N, must stay under 1), batch 8,
+# f32: the kernels against the plain versions on the card with the same
+# noises, relative L2, set before the first reading from VP_PC's f32
+# reading (7.4e-7); sound runs read 7.7e-7 and 8.2e-7 on an H100, the
+# time 1 % off 7.7e-2 and 7.4e-2, which must read CONTROL_FACTOR times
+# the limit.  The known pixels (inpainting) and the luminance channel
+# (colorization) of the samples against their inputs, absolute: the last
+# projection sets them to the marginal mean at t = 1e-5 (5e-7 of the
+# data), and the colorizer's couple / decouple round trip adds f32
+# roundings of samples of magnitude ~260 (1.7e-5 there)
+EVAL_CTRL_STEPS, EVAL_CTRL_BATCH, EVAL_CTRL_TOL = 10, 8, 1e-4
+EVAL_KNOWN_TOL = 1e-4
+# (d) apps.quant_accuracy at batch 16 in each of these modes, under the
+# JAX package's route 0 (the app's), every weight random
+EVAL_QUANT_BATCH, EVAL_QUANT_MODES = 16, ("int8_static", "int8")
 
 # N = 2 PC steps of the config's 2000 (10 until the samplers phase came:
 # the run's time limit; the limits below were read at N = 10)
@@ -1045,13 +1108,17 @@ def phase_slice(model_f32, n_plain, n_gn, n_k6, smi):
     return launches, BATCH / wall
 
 
-def per_forward_counts(net, dtype, batch):
+def per_forward_counts(net, dtype, batch, form=None):
     """The kernel launches of one forward of ``net`` at ``batch`` CIFAR
-    images in ``dtype`` (the routes depend on both)."""
+    images in ``dtype`` (the routes depend on both); with ``form``
+    (``NATDIFF_PALLAS_CONV``, ``NATDIFF_QUANT``) under that form, the int8
+    conv counted too."""
     import torch
-    counters = bench_counters()
+    from naturaldiffusion_tpu_torch.apps.bench import form_env
+    counters = bench_counters() if form is None else form_counters()
     zero_counts(counters)
-    with torch.no_grad():
+    with torch.no_grad(), (contextlib.nullcontext() if form is None
+                           else form_env(*form)):
         net(torch.zeros((batch, 32, 32, 3), dtype=dtype, device="cuda"),
             torch.full((batch,), 500.0, device="cuda"))
     torch.cuda.synchronize()
@@ -1069,21 +1136,24 @@ class Drive:
     sets every count to 0 before and reads the counts after, checks them
     against what its forwards and NI steps must launch, and adds them to
     the phase's total; the runs beside the drives (controls, plain
-    versions) are not counted."""
+    versions) are not counted.  ``counters``: ``bench_counters`` (K1-K4,
+    K6) or ``form_counters`` (also the int8 conv)."""
 
-    def __init__(self):
-        self.total = {}
+    def __init__(self, phase="samplers", counters=None):
+        self.phase, self.total = phase, {}
+        self.counters = counters or bench_counters
 
     @contextlib.contextmanager
     def __call__(self, what, expect_fn):
         import torch
-        counters = bench_counters()
+        counters = self.counters()
         zero_counts(counters)
         yield
         torch.cuda.synchronize()
         got, want = read_counts(counters), expect_fn()
         if got != want:
-            raise AssertionError(f"samplers {what}: launches {got} != {want}")
+            raise AssertionError(f"{self.phase} {what}: launches {got} != "
+                                 f"{want}")
         for k, v in got.items():
             self.total[k] = self.total.get(k, 0) + v
 
@@ -1333,7 +1403,8 @@ def ode(net32, drive, per_fwd):
                control_time_1pct_off_rel_l2=err_ctl,
                sample_abs_max=float(out.abs().max()))
     print(f"  ode: {json.dumps(res)}", flush=True)
-    if not (torch.isfinite(out).all() and err <= ODE_TOL):
+    if not (torch.isfinite(out).all() and nfe == nfe_plain
+            and err <= ODE_TOL and err_ctl >= CONTROL_FACTOR * ODE_TOL):
         raise AssertionError(f"samplers ode: {res}")
     return res
 
@@ -1388,6 +1459,272 @@ def phase_samplers(model_f32, n_plain, n_gn, n_k6, smi):
                                ode=time.perf_counter() - td),
           launches=drive.total)
     return drive.total
+
+
+def eval_inception(smi):
+    """(a) The FID Inception in f32 on the card against the CPU at
+    EVAL_INCEPTION_SIZES, then its features timed at EVAL_FEAT_BATCH CIFAR
+    images (resize included)."""
+    import torch
+    from naturaldiffusion_tpu_torch.eval.inception import (
+        FIDInceptionV3, randomize_inception_)
+    cpu = randomize_inception_(FIDInceptionV3(with_logits=True), SEED + 60)
+    # the BatchNorms random too, so that every leaf takes part
+    g = torch.Generator().manual_seed(SEED + 64)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if name.startswith("fc.") or leaf == "kernel":
+                continue
+            p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=g)
+                    if leaf == "scale" else
+                    0.5 + torch.rand(p.shape, generator=g) if leaf == "var"
+                    else 0.1 * torch.randn(p.shape, generator=g))
+    cpu.eval()
+    card = copy.deepcopy(cpu).to("cuda")
+    gen = torch.Generator().manual_seed(SEED + 61)
+    rows = []
+    for n, h, w in EVAL_INCEPTION_SIZES:
+        x = torch.rand((n, h, w, 3), generator=gen)
+        with torch.no_grad():
+            want = cpu(x)
+            got = card(x.cuda())
+        errs = [rel_l2(g, w_) for g, w_ in zip(got, want)]
+        rows.append(dict(shape=[n, h, w], rel_l2_pool=errs[0],
+                         rel_l2_logits=errs[1],
+                         pool_abs_max=float(want[0].abs().max())))
+        print(f"  inception {n}x{h}x{w}: pool {errs[0]:.3e}, logits "
+              f"{errs[1]:.3e} (limit {INCEPTION_TOL:g})", flush=True)
+        if not (all(torch.isfinite(g).all() for g in got)
+                and max(errs) <= INCEPTION_TOL):
+            raise AssertionError(f"eval inception: {rows[-1]}")
+    xb = torch.rand((EVAL_FEAT_BATCH, 32, 32, 3), generator=gen).cuda()
+    ms = Timer(torch, reps=3)(lambda: card(xb))
+    return dict(sizes=rows, tol=INCEPTION_TOL, feature_batch=EVAL_FEAT_BATCH,
+                feature_ms=ms, feature_img_per_s=EVAL_FEAT_BATCH / ms * 1e3,
+                card=smi)
+
+
+def eval_selfcheck(model_f32, n_plain, n_gn, n_k6):
+    """(b) ``apps.fid_selfcheck.main`` over ``model_f32`` on the card at
+    EVAL_SELFCHECK_ARGS: its pass rule, its CSV row, and the launches of
+    its sampler's warm-up and capture (the replays launch through the
+    graph and count none)."""
+    import csv
+    import tempfile
+    import torch
+    from naturaldiffusion_tpu_torch.apps import fid_selfcheck
+
+    counters = form_counters()
+    zero_counts(counters)
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "selfcheck.csv")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fid_selfcheck.main(list(EVAL_SELFCHECK_ARGS) + [
+                "--out", out, "--device", "cuda"], model=model_f32)
+        torch.cuda.synchronize()
+        got = read_counts(counters)
+        for line in buf.getvalue().splitlines():
+            print(f"  fid_selfcheck: {line}", flush=True)
+        with open(out, newline="") as fh:
+            row = next(csv.DictReader(fh))
+    runs = 2                    # the eager warm-up and the capture
+    want = {"fused_weighted_sum": runs * STEPS,
+            "conv3x3": runs * STEPS * n_plain,
+            "conv3x3_gn": runs * STEPS * n_gn, "conv3x3_tiled": 0,
+            "fused_group_norm": runs * STEPS * n_k6, "conv3x3_int8": 0}
+    if rc != 0 or got != want:
+        raise AssertionError(f"eval fid_selfcheck: rc {rc}, launches {got} "
+                             f"!= {want}, row {row}")
+    return dict(row=row, args=list(EVAL_SELFCHECK_ARGS),
+                reduction="2,048 images of 50,000, 256 of 2048 features"), got
+
+
+def eval_graphed_sampler(model_f32):
+    """(b) ``cifar10_ni.make_sampler(graph=True)`` against ``graph=False``
+    over ``model_f32`` micro-batch by micro-batch (a stale init, a stale
+    noise or an aliased output moves one by O(1)), a planted fault, and
+    fresh generator noises per replay (see EVAL_GRAPH_CHUNKS)."""
+    import torch
+    from naturaldiffusion_tpu_torch.apps.cifar10_ni import make_sampler
+    from naturaldiffusion_tpu_torch.coeffs import registry
+
+    matrix = registry.derive("ddpm", STEPS)
+    graphed = make_sampler(model_f32, matrix, micro=BATCH, device="cuda",
+                           graph=True)
+    eager = make_sampler(model_f32, matrix, micro=BATCH, device="cuda")
+    B = EVAL_GRAPH_CHUNKS * BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 65)
+    init = torch.randn((B, 32, 32, 3), generator=gen, device="cuda")
+    noises = torch.randn((matrix.num_step, B, 32, 32, 3), generator=gen,
+                         device="cuda")
+
+    def per_chunk(got, want):
+        return [rel_l2(got[c:c + BATCH], want[c:c + BATCH])
+                for c in range(0, B, BATCH)]
+
+    want = eager(init, noises=noises)
+    errs = per_chunk(graphed(init, noises=noises), want)
+    state = model_f32.state_dict()
+    fault_key = BENCH_FAULT_CONV + ".kernel"
+    faulted = graphed.with_params(dict(
+        state, **{fault_key: torch.zeros_like(state[fault_key])}))(
+        init, noises=noises)
+    faults = per_chunk(faulted, want)
+    restored = per_chunk(graphed.with_params(state)(init, noises=noises),
+                         want)
+    same = init[:BATCH].repeat(EVAL_GRAPH_CHUNKS, 1, 1, 1)
+    drawn = graphed(same, generator=gen)
+    noise_apart = rel_l2(drawn[BATCH:2 * BATCH], drawn[:BATCH])
+    torch.cuda.synchronize()
+    row = dict(rel_l2_graph_vs_eager=errs, fault_rel_l2=faults,
+               restored_rel_l2=restored, noise_draws_apart=noise_apart,
+               tol=BENCH_GRAPH_TOL, fault_conv=BENCH_FAULT_CONV,
+               images=B, micro=BATCH)
+    print(f"  graphed sampler: {json.dumps(row)}", flush=True)
+    del graphed, eager
+    torch.cuda.empty_cache()
+    if not (torch.isfinite(want).all() and max(errs) <= BENCH_GRAPH_TOL
+            and max(restored) <= BENCH_GRAPH_TOL
+            and min(faults) > BENCH_GRAPH_TOL
+            and noise_apart > BENCH_GRAPH_TOL):
+        raise AssertionError(f"eval graphed sampler: {row}")
+    return row
+
+
+def eval_controllable(net32, drive, per_fwd):
+    """(c) PC inpainting and colorization over ``net32`` as SAMPLERS_CONFIG
+    at N = EVAL_CTRL_STEPS, f32: the kernels against the plain versions
+    with the same noises, the time 1 % off, the known pixels and the
+    luminance against their inputs, the launches of each drive."""
+    import torch
+    from naturaldiffusion_tpu_torch import configs
+    from naturaldiffusion_tpu_torch.samplers import controllable as CG
+    from naturaldiffusion_tpu_torch.sde import VPSDE, get_score_fn
+
+    cfg = configs.get_config(SAMPLERS_CONFIG)
+    full = configs.get_sde(cfg)
+    sde = VPSDE(beta_min=full.beta_min, beta_max=full.beta_max,
+                N=EVAL_CTRL_STEPS)
+    B = EVAL_CTRL_BATCH
+    gen = torch.Generator().manual_seed(SEED + 62)
+    data = (torch.rand((B, 32, 32, 3), generator=gen) * 2 - 1).cuda()
+    mask = torch.zeros_like(data)
+    mask[:, :, :16] = 1.0                   # the left half is known
+    gray = data.mean(-1, keepdim=True).expand(-1, -1, -1, 3).contiguous()
+    kw = dict(predictor=cfg.sampling.predictor,
+              corrector=cfg.sampling.corrector, snr=cfg.sampling.snr,
+              n_steps=cfg.sampling.n_steps_each, device="cuda")
+
+    def run(kind, scale=1.0, calls=None):
+        def apply(x, lab):
+            if calls is not None:
+                calls.append(1)
+            return net32(x, lab * scale)
+        score = get_score_fn(sde, apply, continuous=cfg.sde.continuous)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 63)
+        if kind == "inpaint":
+            return CG.get_pc_inpainter(sde, score, **kw)(g, data, mask)
+        return CG.get_pc_colorizer(sde, score, **kw)(g, gray)
+
+    n_corr = cfg.sampling.n_steps_each if cfg.sampling.corrector != "none" \
+        else 0
+    rows = {}
+    for kind in ("inpaint", "colorize"):
+        calls = []
+        tr = time.perf_counter()
+        with drive(kind, lambda: expect_counts(per_fwd, len(calls))):
+            out = run(kind, calls=calls)
+        wall = time.perf_counter() - tr
+        with plain_convs_and_norms():
+            want = run(kind)
+        err, err_ctl = rel_l2(out, want), rel_l2(run(kind, 1.01), want)
+        if kind == "inpaint":
+            known = float((out - data)[mask == 1].abs().max())
+        else:
+            known = float((CG.decouple(out)[..., 0]
+                           - CG.decouple(gray)[..., 0]).abs().max())
+        rows[kind] = dict(rel_l2_kernels_vs_plain=err, tol=EVAL_CTRL_TOL,
+                          control_time_1pct_off_rel_l2=err_ctl,
+                          known_max_abs_err=known, model_calls=len(calls),
+                          wall_s=wall, img_per_s=B / wall,
+                          sample_abs_max=float(out.abs().max()))
+        print(f"  {kind}: {json.dumps(rows[kind])}", flush=True)
+        if not (torch.isfinite(out).all()
+                and len(calls) == EVAL_CTRL_STEPS * (1 + n_corr)
+                and err <= EVAL_CTRL_TOL
+                and err_ctl >= CONTROL_FACTOR * EVAL_CTRL_TOL
+                and known <= EVAL_KNOWN_TOL):
+            raise AssertionError(f"eval {kind}: {rows[kind]}")
+    return dict(rows, config=SAMPLERS_CONFIG, predictor=kw["predictor"],
+                corrector=kw["corrector"], batch=B, steps=EVAL_CTRL_STEPS,
+                reduction=f"N = {EVAL_CTRL_STEPS} steps instead of {full.N}")
+
+
+def eval_quant(model_f32, drive):
+    """(d) ``apps.quant_accuracy.run`` over ``model_f32`` at batch
+    EVAL_QUANT_BATCH in each of EVAL_QUANT_MODES: its report, a non-zero
+    int8-against-bf16 gap, and the launches of its three runs (bf16 and
+    int8 engines, the f32 forwards of the oracle) under route 0."""
+    import torch
+    from naturaldiffusion_tpu_torch.apps import quant_accuracy as QA
+
+    B = EVAL_QUANT_BATCH
+    net16 = copy.deepcopy(model_f32).to(device="cuda", dtype=torch.bfloat16)
+    net32 = copy.deepcopy(model_f32).to("cuda")
+    per_bf16 = per_forward_counts(net16, torch.bfloat16, B, form=("0", ""))
+    per_f32 = per_forward_counts(net32, torch.float32, B, form=("0", ""))
+    reports = {}
+    for mode in EVAL_QUANT_MODES:
+        args = QA.parse_args(["--batch", str(B), "--mode", mode, "--device",
+                              "cuda"])
+        per_int8 = per_forward_counts(net16, torch.bfloat16, B,
+                                      form=("0", mode))
+        n = args.steps
+
+        def want():
+            return {k: n * (per_bf16[k] + per_int8[k] + per_f32[k])
+                    + (2 * n if k == "fused_weighted_sum" else 0)
+                    for k in per_bf16}
+        with drive(f"quant_accuracy {mode}", want):
+            rep = QA.run(args, model=model_f32)
+        reports[mode] = dict(rep, q1_launches=n * per_int8["conv3x3_int8"])
+        print(f"  quant_accuracy: {json.dumps(reports[mode])}", flush=True)
+        if not (rep["finite"] and rep["mae_int8_vs_bf16"] > 0
+                and per_int8["conv3x3_int8"] > 0):
+            raise AssertionError(f"eval quant_accuracy {mode}: {rep}")
+    return reports
+
+
+def phase_eval(model_f32, n_plain, n_gn, n_k6, smi):
+    """The evaluation modules at full width with random weights: (a) the
+    FID Inception, card against CPU; (b) ``apps.fid_selfcheck``; (c) PC
+    inpainting and colorization; (d) ``apps.quant_accuracy``.  Its
+    launches are (b)'s and the drives' of (c) and (d)."""
+    import torch
+    t0 = time.perf_counter()
+    drive = Drive("eval", form_counters)
+    inception = eval_inception(smi)
+    ta = time.perf_counter()
+    selfcheck, sc_launches = eval_selfcheck(model_f32, n_plain, n_gn, n_k6)
+    selfcheck["graphed_sampler"] = eval_graphed_sampler(model_f32)
+    tb = time.perf_counter()
+    net32 = copy.deepcopy(model_f32).to("cuda").eval()
+    ctrl = eval_controllable(net32, drive, per_forward_counts(
+        net32, torch.float32, EVAL_CTRL_BATCH, form=("2", "")))
+    del net32
+    tc = time.perf_counter()
+    quant = eval_quant(model_f32, drive)
+    torch.cuda.empty_cache()
+    launches = {k: v + drive.total.get(k, 0) for k, v in sc_launches.items()}
+    phase("eval", t0, card=smi, inception=inception,
+          fid_selfcheck=selfcheck, controllable=ctrl, quant_accuracy=quant,
+          seconds_by_part=dict(inception=ta - t0, fid_selfcheck=tb - ta,
+                               controllable=tc - tb,
+                               quant_accuracy=time.perf_counter() - tc),
+          launches=launches)
+    return launches
 
 
 def bench_counters():
@@ -3285,6 +3622,7 @@ def main(argv=None) -> int:
     phase_forward(model)
     launches, ips = phase_slice(model, n_plain, n_gn, n_k6, smi)
     sampler_launches = phase_samplers(model, n_plain, n_gn, n_k6, smi)
+    eval_launches = phase_eval(model, n_plain, n_gn, n_k6, smi)
     del model
     bench_launches, bench_traced, bench_lines = phase_bench(
         n_plain, n_gn, n_k6, bench_flops)
@@ -3326,6 +3664,7 @@ def main(argv=None) -> int:
                "dit_slice_w8": dit_runs["w8"]["launches"],
                "ve_slice": ve_launches,
                "samplers": sampler_launches,
+               "eval": eval_launches,
                "attention_bench": attn_launches,
                "fused_act": k8_launches}
     # each kernel's count from the path that exercises it: K1-K3 the

@@ -10,8 +10,14 @@ Prints img/s, and writes to ``--outdir`` the first 64 samples as a PNG grid
 (PIL), all samples as ``samples_{prov}.npy`` and ``meta.json`` with the
 weights' provenance (``prov``: ``converted`` or ``random``).
 
+With ``--fid-stats`` (an npz of ``mu``/``sigma``, the
+``cifar10_mu_sigma.npz`` layout) it prints the samples' FID against those
+statistics through ``eval.fid.fid_from_samples``, and the Inception's
+provenance beside it: ``inception=converted`` from ``--inception
+pt_inception-2015-12-05.pth``, else ``inception=random`` (random weights:
+the pipeline, not a real FID; the repository holds no such file).
+
 Run: ``python -m naturaldiffusion_tpu_torch.apps.cifar10_ni --num 256``.
-``--fid-stats`` waits for the port of ``eval/fid.py``.
 """
 
 from __future__ import annotations
@@ -30,11 +36,12 @@ from ..coeffs import registry
 from ..coeffs.matrix import CoeffMatrix
 from ..device import resolve_device
 from ..engine import NISchedule, natural_inference
+from ..engine.graph import GraphedNI
 from ..models.ncsnpp import CIFAR10_DDPMPP_CONTINUOUS, NCSNpp
 
 
 def make_sampler(model, matrix: CoeffMatrix, *, micro: int = 64,
-                 dtype=torch.bfloat16, device="cuda"):
+                 dtype=torch.bfloat16, device="cuda", graph: bool = False):
     """``run(init, noises=None, generator=None) -> samples`` (float32).
 
     A copy of ``model`` in ``dtype`` on ``device`` predicts eps; the engine
@@ -45,23 +52,48 @@ def make_sampler(model, matrix: CoeffMatrix, *, micro: int = 64,
     ``run.with_params(state)`` loads another state (a port model's
     ``state_dict()``: the same names and shapes, or ``load_state_dict``
     raises) into the sampler's copy in place, cast to ``dtype``, and
-    returns ``run``."""
+    returns ``run``.
+
+    With ``graph`` (a CUDA device only) each chunk is one replay of a CUDA
+    graph of the NI run over ``micro`` images (:class:`..engine.graph.
+    GraphedNI`), captured at the first call and kept in ``run.graphed``;
+    B must then be a multiple of ``micro``.  A replay reads the weights the
+    copy holds at that time."""
     dev = resolve_device(device)
+    if graph and (dev.type != "cuda" or not micro):
+        raise ValueError("graph=True needs a CUDA device and micro > 0")
     net = copy.deepcopy(model).to(device=dev, dtype=dtype).eval()
     sched = NISchedule.from_matrix(matrix, device=dev)
 
     def eps_fn(z, t):
         return net(z, t.reshape(1).expand(z.shape[0]))
 
+    def graphed(x, noises, generator):
+        if run.graphed is None:
+            run.graphed = GraphedNI(eps_fn, sched, x.shape,
+                                    prediction_type="eps",
+                                    model_dtype=dtype).capture()
+        g = run.graphed
+        g.load(x, generator)
+        if noises is not None:
+            g.noises.copy_(noises)
+        return g.replay().clone()
+
     @torch.no_grad()
     def run(init, noises=None, generator=None):
         bb = init.shape[0]
+        if graph and bb % micro:
+            raise ValueError(f"a graphed sampler takes multiples of "
+                             f"{micro} images, got {bb}")
         step = micro if micro and bb % micro == 0 and bb > micro else bb
         outs = []
         for c in range(0, bb, step):
+            nz = None if noises is None else noises[:, c:c + step]
+            if graph:
+                outs.append(graphed(init[c:c + step], nz, generator))
+                continue
             outs.append(natural_inference(
-                eps_fn, sched, init[c:c + step],
-                noises=None if noises is None else noises[:, c:c + step],
+                eps_fn, sched, init[c:c + step], noises=nz,
                 generator=generator, prediction_type="eps",
                 model_dtype=dtype))
         return torch.cat(outs)
@@ -71,6 +103,7 @@ def make_sampler(model, matrix: CoeffMatrix, *, micro: int = 64,
         return run
 
     run.with_params = with_params
+    run.graphed = None
     return run
 
 
@@ -87,6 +120,11 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=888)   # the reference seed
     p.add_argument("--ckpt", default=None, help="torch checkpoint_8.pth")
     p.add_argument("--outdir", default="samples")
+    p.add_argument("--fid-stats", default=None,
+                   help="npz with mu/sigma (cifar10_mu_sigma.npz layout)")
+    p.add_argument("--inception", default=None,
+                   help="pt_inception-2015-12-05.pth for --fid-stats "
+                        "(random weights if omitted: not a real FID)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
@@ -140,6 +178,14 @@ def main(argv=None) -> int:
                    "wall_s": round(wall, 2)}, fh, indent=1)
     print(f"wrote {grid} and {samples} ({args.num} images, {wall:.1f}s, "
           f"weights={prov})", flush=True)
+
+    if args.fid_stats:
+        from ..eval.fid import fid_from_samples
+        from ..eval.inception import default_feature_fn
+        fid = fid_from_samples(images, args.fid_stats, feature_fn=(
+            default_feature_fn(args.inception, device=dev)))
+        inception = "converted" if args.inception else "random"
+        print(f"FID = {fid:.3f} (inception={inception})", flush=True)
     return 0
 
 

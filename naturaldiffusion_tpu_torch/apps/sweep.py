@@ -15,9 +15,13 @@ Each cell samples ``--num`` images in batches of ``--batch``, run in
 micro-batches of ``--micro``, and writes one CSV row: ``weights``
 (``converted`` with ``--ckpt``, else ``random``), the cell's keys,
 ``img_per_sec`` (steady state: the first batch is excluded, nan with one
-batch), ``wall_s`` (the cell's whole time) and ``finite``.  The CSV is
-rewritten after every cell.  FID (``--fid-stats``) waits for the port of
-``eval/fid.py``.
+batch), ``wall_s`` (the cell's whole time), ``finite``, and with
+``--fid-stats`` (an npz of ``mu``/``sigma``) ``inception`` and ``fid``:
+the FID of all the cell's samples through ``eval.fid.fid_from_samples``,
+its Inception ``converted`` from ``--inception`` (a
+``pt_inception-2015-12-05.pth``) or else ``random`` (the pipeline, not a
+real FID: the repository holds no such file).  The CSV is rewritten after
+every cell.
 
     python -m naturaldiffusion_tpu_torch.apps.sweep --family dpmsolverpp \\
         --num 128 --batch 64 --only multistep:2 --out sweep.csv
@@ -103,11 +107,14 @@ def _sample_cells(args, cells, build_sampler, sink=None):
         sampler = _make_runner(build_sampler(cell), args.micro, dev)
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         finite, t0, first, done = True, None, 0, 0
+        imgs = []
         while done < args.num:
             b = min(args.batch, args.num - done)
             x = torch.randn((b, 32, 32, 3), generator=gen, device=dev)
             out = sampler(x)
             finite = finite and bool(torch.isfinite(out).all())  # syncs
+            if args.fid_stats:
+                imgs.append(out)
             done += b
             if t0 is None:          # exclude the first batch (time and images)
                 t0, first = time.time(), done
@@ -117,6 +124,13 @@ def _sample_cells(args, cells, build_sampler, sink=None):
         row["img_per_sec"] = round(rate, 2)
         row["wall_s"] = round(time.time() - cell_t0, 1)
         row["finite"] = finite
+        if args.fid_stats:
+            from ..eval.fid import fid_from_samples
+            from ..eval.inception import default_feature_fn
+            row["inception"] = "converted" if args.inception else "random"
+            row["fid"] = round(fid_from_samples(
+                torch.cat(imgs), args.fid_stats, feature_fn=(
+                    default_feature_fn(args.inception, device=dev))), 3)
         rows.append(row)
         print(row, flush=True)
         if sink is not None:
@@ -207,6 +221,11 @@ def parse_args(argv=None):
                         "(the reference FID-sweep setup)")
     p.add_argument("--out", default=None,
                    help="CSV path (default <family>_<steps>step_sweep.csv)")
+    p.add_argument("--fid-stats", default=None,
+                   help="npz with mu/sigma (cifar10_mu_sigma.npz layout)")
+    p.add_argument("--inception", default=None,
+                   help="pt_inception-2015-12-05.pth for --fid-stats "
+                        "(random weights if omitted: not a real FID)")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 

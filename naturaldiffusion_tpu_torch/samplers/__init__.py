@@ -1,9 +1,9 @@
 """Samplers of the port (``naturaldiffusion_tpu/samplers/``): the direct
 recursions, predictor-corrector and probability-flow ODE sampling, RK45,
-DPM-Solver and DEIS.  The controllable samplers wait (ROADMAP.md, Queue
-A, slice 4)."""
+DPM-Solver, DEIS, and PC inpainting and colorization."""
 
 from . import deis
+from .controllable import couple, decouple, get_pc_colorizer, get_pc_inpainter
 from .direct import (ddim, ddpm_ancestral, flow_euler, ode_euler, ode_heun,
                      sde_euler)
 from .dpm_solver import DPMSolver, NoiseScheduleVP, model_wrapper
@@ -15,4 +15,5 @@ __all__ = ["ddpm_ancestral", "ddim", "ode_euler", "sde_euler", "ode_heun",
            "flow_euler", "get_pc_sampler", "get_ode_sampler",
            "get_predictor", "get_corrector", "register_predictor",
            "register_corrector", "rk45_integrate", "NoiseScheduleVP",
-           "DPMSolver", "model_wrapper", "deis"]
+           "DPMSolver", "model_wrapper", "deis", "get_pc_inpainter",
+           "get_pc_colorizer", "decouple", "couple"]

@@ -119,7 +119,32 @@ assert torch.isfinite(deis.get_sampler_t_ab(
     LinearVPSDE(), lambda x, t: x * 0.1, "t", 2.0, 3)(torch.randn(1, 4))).all()
 assert sweep.deis_cells() and convert.strip_prefixes({{"module.a": 1}}) == {{"a": 1}}
 assert callable(analyze.analyze) and callable(plotting.save_image_grid)
+from naturaldiffusion_tpu_torch.apps import (fid_selfcheck, fid_stats,
+                                             quant_accuracy)
+from naturaldiffusion_tpu_torch.data import NativeBatchLoader
+from naturaldiffusion_tpu_torch.eval import fid, inception
+from naturaldiffusion_tpu_torch.samplers.controllable import (
+    get_pc_colorizer, get_pc_inpainter)
 import numpy as np
+feats = fid.activations(np.random.rand(3, 32, 32, 3).astype(np.float32),
+                        inception.default_feature_fn(with_logits=True,
+                                                     device="cpu"),
+                        batch_size=2, pad_to_batch=True)
+assert feats.shape == (3, 2048 + 1008) and np.isfinite(feats).all()
+mu, sigma = fid.compute_statistics(np.random.rand(16, 3))
+assert abs(fid.frechet_distance(mu, sigma, mu, sigma)) < 1e-6
+assert fid.inception_score(np.full((4, 5), 0.2), splits=2)[0] > 0.99
+vp2 = type(vp)(N=2)
+kw = dict(predictor="euler_maruyama", corrector="none", eps=1e-3,
+          device="cpu")
+g = torch.Generator().manual_seed(0)
+gray = torch.zeros(1, 8, 8, 3)
+assert torch.isfinite(get_pc_inpainter(vp2, lambda x, t: -x, **kw)(
+    g, gray, torch.ones_like(gray))).all()
+assert torch.isfinite(get_pc_colorizer(vp2, lambda x, t: -x, **kw)(
+    g, gray)).all()
+assert callable(fid_selfcheck.main) and callable(fid_stats.main)
+assert callable(quant_accuracy.run) and NativeBatchLoader.__len__
 for name in ("deis_tab", "dpmsolver3s", "flow_euler", "ode_heun"):
     m = registry.derive(name, 4)
     assert np.isfinite(m.x0).all() and np.isfinite(m.eps).all()
@@ -146,6 +171,16 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert len(files) > 10
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders
+
+
+def test_scipy_only_for_the_frechet_distance():
+    """scipy is allowed in the port for ``sqrtm`` in ``eval/fid.py``
+    alone."""
+    pat = re.compile(r"^\s*(import|from)\s+scipy(\.|\s|$)", re.M)
+    users = sorted(str(f.relative_to(ROOT)) for f in
+                   (ROOT / "naturaldiffusion_tpu_torch").rglob("*.py")
+                   if pat.search(f.read_text()))
+    assert users == ["naturaldiffusion_tpu_torch/eval/fid.py"]
 
 
 def test_entry_points_refuse_a_missing_card(monkeypatch):
@@ -220,3 +255,28 @@ def test_registry_derives_the_ported_samplers():
     assert m.x0.shape == (10, 10) and np.isfinite(m.eps).all()
     assert not m.is_deterministic
     assert registry.derive("ddim", 10).is_deterministic
+
+
+def test_eval_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from naturaldiffusion_tpu_torch.apps import (fid_selfcheck, fid_stats,
+                                                 quant_accuracy)
+    from naturaldiffusion_tpu_torch.eval import fid, inception
+    from naturaldiffusion_tpu_torch.samplers import controllable
+    from naturaldiffusion_tpu_torch.sde import VPSDE
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        inception.default_feature_fn()
+    np.savez(tmp_path / "s.npz", mu=np.zeros(2), sigma=np.eye(2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fid.fid_from_samples(np.zeros((1, 32, 32, 3)),
+                             str(tmp_path / "s.npz"))
+    for make in (controllable.get_pc_inpainter,
+                 controllable.get_pc_colorizer):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(VPSDE(N=2), lambda x, t: x)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fid_selfcheck.main(["--toy", "--num", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fid_stats.main(["--data", str(tmp_path / "none.bin")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quant_accuracy.main(["--batch", "1"])
