@@ -120,6 +120,25 @@ printed as one line with its numbers and seconds as it ends:
            counts, img/s, MFU, the card's busy share, and the samples
            against an f32 run of the plain versions on the card beside two
            controls, and the kernels in f32 against the same run.
+  backbones     the zoo's other families, built from their entries by
+           ``models.create_model``: (a) the CIFAR-10 DDPM
+           (``vp/ddpm/cifar10``) under 10-step DDPM NI, batch 64, bf16,
+           through ``cifar10_ni.make_sampler``, eager and graphed, each
+           drive's K1, K2 and K6 launches against the model walk's, graph
+           against eager, 2 samples in f32 and bf16 against a CPU f32 run
+           beside the slice's two controls, img/s; each of its K2 and K6
+           shapes against the plain versions, and its Q1 shapes under
+           int8_static bit for bit; (b) one bf16 forward of the CelebA-HQ
+           256 DDPM, its K4, K2 and K6 shapes checked, the largest K4 shape
+           timed; (c) NCSNv2 and NCSN at 32^2 in f32, card against CPU,
+           NCSNv2_128 at 128^2 in bf16 against f32, and annealed Langevin
+           over NCSN through ``get_pc_sampler`` (its 10 sigmas, 2 steps
+           each instead of 100, batch 8); (d) one forward of the 1024^2
+           NCSN++ (``ve/celebahq_ncsnpp_continuous``) in bf16 and f32
+           against the f32 plain versions beside a 1 %-off control, its
+           launches and ms, every kernel shape checked (the C < 128 convs
+           at 256^2-1024^2 on K2), the largest K2 shape and K6 at 1024^2 x
+           16 in 4 groups timed.
   tool_kernels  kernel K10 (splash attention, with its logsumexp) against
            its plain version at SD3's three joint lengths, ``mha_joint``
            against one full softmax per row and profiled in a fresh child
@@ -144,6 +163,7 @@ JSON and ``{"ok": true, "device": {...}}``.  Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import atexit
 import concurrent.futures
 import contextlib
 import copy
@@ -357,6 +377,37 @@ VE_SLICE_TOL = 3e-2
 # the f32 forward agrees to ~3e-6 (ve_forward); relative L2
 VE_SLICE_F32_TOL = 1e-3
 
+# the backbones phase: the zoo's other families, each built from its entry
+# through models.create_model with every weight random.  (a) Ho et al.'s
+# CIFAR-10 DDPM (nf 128, ch_mult (1,2,2,2), 2 blocks a level, attention at
+# 16^2) under 10-step DDPM NI at batch 64 in bf16, graphed and eager; a
+# forward at the port's default switch runs its 44 resblock convs, 3
+# upsampling convs, stem and head on K2 (the JAX package has no fused form
+# of this block, so no K3) and its 44 resblock, 4 attention and 1 head
+# GroupNorms on K6; under int8_static the 47 convs whose channel counts
+# are multiples of 128 run Q1
+DDPM_CONFIG = "vp/ddpm/cifar10"
+DDPM_PER_FORWARD = {"fused_weighted_sum": 0, "conv3x3": 49, "conv3x3_gn": 0,
+                    "conv3x3_tiled": 0, "fused_group_norm": 49}
+DDPM_INT8_PER_FORWARD = 47
+# (b) the CelebA-HQ 256 DDPM (ch_mult (1,1,2,2,4,4)), one bf16 forward at
+# one image: its 128-channel convs at 256^2 and 128^2 take K4
+DDPM_256_CONFIG = "vp/ddpm/celebahq"
+# (c) NCSNv2 and NCSN at 32^2, f32 on the card against the CPU at one image
+# (library convs, plain norms: FORWARD_TOL); NCSNv2_128 at 128^2 in bf16
+# against the card's f32, relative L2: ~90 library convs of bf16
+# operands, set before the first reading at the routes phase's bf16 limit
+NCSNV2_CONFIG, NCSN_CONFIG = "ve/ncsnv2/cifar10", "ve/ncsn/cifar10"
+NCSNV2_128_CONFIG, NCSNV2_BF16_TOL = "ve/ncsnv2/bedroom", 5e-2
+# annealed Langevin of ve/ncsn/*: its 10 sigmas, n_steps_each cut from 100
+# to 2 (the run's time limit), batch 8
+ALD_STEPS_EACH, ALD_BATCH = 2, 8
+# (d) the 1024^2 NCSN++ (nf 16, ch_mult (1,2,4,8,16,32,32,32)): one forward
+# at one image, bf16 kernels against the f32 plain versions on the card,
+# relative L2, set before the first reading at the routes phase's bf16
+# limit; the f32 kernels against the same at FORWARD_TOL
+NCSNPP_1024_CONFIG, NCSNPP_1024_TOL = "ve/celebahq_ncsnpp_continuous", 5e-2
+
 DIT_MODEL, DIT_STEPS, DIT_ACC_STEPS, DIT_CFG_SCALE = "DiT-XL/2", 50, 10, 4.0
 # full-width DiT-XL/2 forward, f32 card vs f32 CPU, relative L2: K9's f32
 # path (bf16 hi/lo splits, ~1e-5 per call) and f32 sums in other orders
@@ -502,25 +553,40 @@ def host_us(torch, fn, n=200):
     return dt / n * 1e6
 
 
-def profiled(torch, fn, top_n=8):
-    """Device time, wall time, the card's busy share and the top kernels of
-    one synchronised call of ``fn``, from ``torch.profiler``."""
+def device_profile(torch, fn):
+    """One synchronised call of ``fn`` under ``torch.profiler``, recording
+    the card's activity alone: (wall ms, {device event name: [count,
+    ms]}).  The events are summed from the profiler's raw records:
+    recording each host op too, and ``key_averages``, which first builds a
+    tree of every event, cost ~7 s for a 10-step NI run on an H100."""
     from torch.profiler import ProfilerActivity, profile
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
         tw = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - tw) * 1e3
-    kern = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")
-            and e.self_device_time_total > 0]
-    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    top = [(e.key[:60], e.count, e.self_device_time_total / 1e3)
-           for e in sorted(kern, key=lambda e: -e.self_device_time_total)
-           [:top_n]]
+    kern = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA \
+                and e.duration_ns() > 0:
+            row = kern.setdefault(e.name(), [0, 0.0])
+            row[0] += 1
+            row[1] += e.duration_ns() / 1e6
+    return wall_ms, kern
+
+
+def top_kernels(kern, top_n=8):
+    return [(name[:60], n, ms) for name, (n, ms) in
+            sorted(kern.items(), key=lambda kv: -kv[1][1])[:top_n]]
+
+
+def profiled(torch, fn, top_n=8):
+    """Device time, wall time, the card's busy share and the top kernels of
+    one synchronised call of ``fn`` (``device_profile``)."""
+    wall_ms, kern = device_profile(torch, fn)
+    dev_ms = sum(ms for _, ms in kern.values())
     return dict(device_ms=dev_ms, wall_ms=wall_ms,
-                busy_share=dev_ms / wall_ms, top=top)
+                busy_share=dev_ms / wall_ms, top=top_kernels(kern, top_n))
 
 
 def check_close(what, got, want, tol):
@@ -716,29 +782,44 @@ RAGGED_CONVS = (
                        False)))
 
 
+def check_conv(torch, C, kind, sig, dtype, gen, what=""):
+    """One conv kernel (K2, K3 or K4 by ``kind``) at signature ``sig`` on
+    fresh inputs against its plain version with cuDNN off, at F32_TOL or
+    BF16_TOL by ``dtype`` and STATS_TOL for the channel sums; returns the
+    max absolute and relative errors and the sums' error (0 without
+    them)."""
+    xx, ww, bb, pre, sk = conv_inputs(torch, sig, dtype, gen)
+    kw = dict(pre=pre, skip=sk, skip_rescale=sk is not None,
+              emit_stats=sig[4])
+    got = (C.conv3x3_gn(xx, ww, bb, **kw) if kind == "conv3x3_gn"
+           else getattr(C, kind)(xx, ww, bb))
+    with torch.backends.cudnn.flags(enabled=False):
+        want = C.conv3x3_gn_reference(xx, ww, bb, **kw)
+    got, want = (got, want) if sig[4] else ((got,), (want,))
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    err, rel = check_close(f"{what}{kind} {sig} {dtype}", got[0], want[0],
+                           tol)
+    stats = 0.0
+    if sig[4]:
+        acc = want[0].float()
+        stats = max(
+            check_stats(f"{what}{sig} s1", got[1], want[1],
+                        acc.abs().sum(dim=(1, 2))),
+            check_stats(f"{what}{sig} s2", got[2], want[2],
+                        (acc * acc).sum(dim=(1, 2))))
+    return err, rel, stats
+
+
 def check_ragged_convs(torch, C, gen):
     """The bf16 tensor-core kernel at RAGGED_CONVS against the plain
     version, at BF16_TOL and STATS_TOL."""
     out = []
     for kind, sig in RAGGED_CONVS:
-        xx, ww, bb, pre, sk = conv_inputs(torch, sig, torch.bfloat16, gen)
-        kw = dict(pre=pre, skip=sk, skip_rescale=sk is not None,
-                  emit_stats=sig[4])
-        got = (C.conv3x3_gn(xx, ww, bb, **kw) if kind == "conv3x3_gn"
-               else getattr(C, kind)(xx, ww, bb))
-        with torch.backends.cudnn.flags(enabled=False):
-            want = C.conv3x3_gn_reference(xx, ww, bb, **kw)
-        got, want = (got, want) if sig[4] else ((got,), (want,))
         row = dict(kind=kind, sig=repr(sig), plan=plan_of(sig))
-        row["err"], row["rel_err"] = check_close(
-            f"ragged {kind} {sig}", got[0], want[0], BF16_TOL)
+        row["err"], row["rel_err"], stats = check_conv(
+            torch, C, kind, sig, torch.bfloat16, gen, "ragged ")
         if sig[4]:
-            acc = want[0].float()
-            row["stats_err"] = max(
-                check_stats(f"ragged {sig} s1", got[1], want[1],
-                            acc.abs().sum(dim=(1, 2))),
-                check_stats(f"ragged {sig} s2", got[2], want[2],
-                            (acc * acc).sum(dim=(1, 2))))
+            row["stats_err"] = stats
         print(f"  ragged {kind} {sig}: max abs err {row['err']:.3e}, "
               f"plan {row['plan']}", flush=True)
         out.append(row)
@@ -1010,6 +1091,36 @@ def plain_convs_and_norms():
          G.fused_group_norm) = saved
 
 
+class GraphedForward:
+    """``net(x, t)`` at one input shape as a CUDA graph replay, for the
+    uncounted runs beside a check (its plain-version and control runs),
+    whose eager forwards cost ~55 ms of host time each: the first call
+    warms ``net`` up on a side stream and captures it (under whatever
+    routes are in force then: ``plain_convs_and_norms`` captures the plain
+    versions), every call copies ``x`` and ``t`` into the static inputs,
+    replays and returns a copy of the output."""
+
+    def __init__(self, net):
+        self.net, self.graph = net, None
+
+    def __call__(self, x, t):
+        import torch
+        if self.graph is None:
+            self.x, self.t = x.clone(), t.clone()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side), torch.no_grad():
+                self.net(self.x, self.t)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph), torch.no_grad():
+                self.out = self.net(self.x, self.t)
+        self.x.copy_(x)
+        self.t.copy_(t)
+        self.graph.replay()
+        return self.out.clone()
+
+
 def slice_controls(model_f32, matrix, init, noises, want):
     """Two readings beside the slice check, on its first 2 samples: the
     same bf16 run through the plain versions on the card (what bf16 alone
@@ -1054,6 +1165,7 @@ def phase_slice(model_f32, n_plain, n_gn, n_k6, smi):
     from naturaldiffusion_tpu_torch.ops import weighted_sum as WS
 
     t = time.perf_counter()
+    parts = {}
     matrix = registry.derive("ddpm", STEPS)
     run = make_sampler(model_f32, matrix, micro=BATCH, dtype=torch.bfloat16,
                        device="cuda")
@@ -1063,6 +1175,7 @@ def phase_slice(model_f32, n_plain, n_gn, n_k6, smi):
                          device="cuda")
     run(init, noises=noises)                     # warm-up
     torch.cuda.synchronize()
+    parts["setup_and_warm_up"] = time.perf_counter() - t
     counters = (WS.fused_weighted_sum, C.conv3x3, C.conv3x3_gn,
                 C.conv3x3_tiled, G.fused_group_norm)
     for f in counters:
@@ -1080,19 +1193,27 @@ def phase_slice(model_f32, n_plain, n_gn, n_k6, smi):
                              f"forward: {n_gn} K3, {n_plain} K2, {n_k6} K6)")
     if not (torch.isfinite(out).all() and out.shape == init.shape):
         raise AssertionError("slice: non-finite or misshapen samples")
+    tp = time.perf_counter()
     prof = profiled(torch, lambda: run(init, noises=noises))  # where it goes
+    parts["profiled_run"] = time.perf_counter() - tp
 
     # the first 2 samples against the CPU in float32, fed the same noises;
     # the same 2 through the kernels in float32 pin the loop more tightly
+    tp = time.perf_counter()
     cpu = make_sampler(model_f32, matrix, micro=BATCH, dtype=torch.float32,
                        device="cpu")
     want = cpu(init[:2].cpu(), noises=noises[:, :2].cpu())
+    parts["cpu_oracle"] = time.perf_counter() - tp
+    tp = time.perf_counter()
     card32 = make_sampler(model_f32, matrix, micro=BATCH,
                           dtype=torch.float32, device="cuda")
     got32 = card32(init[:2], noises=noises[:, :2])
     err, err32 = rel_l2(out[:2], want), rel_l2(got32, want)
+    parts["card_f32"] = time.perf_counter() - tp
+    tp = time.perf_counter()
     ctl_plain, ctl_fault = slice_controls(model_f32, matrix, init[:2],
                                           noises[:, :2], want)
+    parts["controls"] = time.perf_counter() - tp
     if err > SLICE_TOL or err32 > SLICE_F32_TOL:
         raise AssertionError(f"slice: rel L2 {err:.3e} (bf16, tol "
                              f"{SLICE_TOL:g}), {err32:.3e} (f32, tol "
@@ -1104,13 +1225,14 @@ def phase_slice(model_f32, n_plain, n_gn, n_k6, smi):
           rel_l2_f32_vs_cpu_f32=err32, tol_f32=SLICE_F32_TOL,
           control_plain_bf16_rel_l2=ctl_plain,
           control_time_1pct_off_rel_l2=ctl_fault,
-          sample_abs_max=float(out.abs().max()))
+          sample_abs_max=float(out.abs().max()), seconds_by_part=parts)
     return launches, BATCH / wall
 
 
-def per_forward_counts(net, dtype, batch, form=None):
-    """The kernel launches of one forward of ``net`` at ``batch`` CIFAR
-    images in ``dtype`` (the routes depend on both); with ``form``
+def per_forward_counts(net, dtype, batch, form=None, hw=32, label=500.0):
+    """The kernel launches of one forward of ``net`` at ``batch`` images of
+    ``hw`` x ``hw`` (CIFAR's by default) in ``dtype`` (the routes depend on
+    all three), at time label ``label``; with ``form``
     (``NATDIFF_PALLAS_CONV``, ``NATDIFF_QUANT``) under that form, the int8
     conv counted too."""
     import torch
@@ -1119,8 +1241,8 @@ def per_forward_counts(net, dtype, batch, form=None):
     zero_counts(counters)
     with torch.no_grad(), (contextlib.nullcontext() if form is None
                            else form_env(*form)):
-        net(torch.zeros((batch, 32, 32, 3), dtype=dtype, device="cuda"),
-            torch.full((batch,), 500.0, device="cuda"))
+        net(torch.zeros((batch, hw, hw, 3), dtype=dtype, device="cuda"),
+            torch.full((batch,), label, device="cuda"))
     torch.cuda.synchronize()
     return read_counts(counters)
 
@@ -1176,10 +1298,15 @@ def ni_pairs(net, drive, per_fwd):
     init = torch.randn((B, 32, 32, 3), generator=gen, device="cuda")
     noises = torch.randn((n, B, 32, 32, 3), generator=gen, device="cuda")
 
+    # the controls replay one captured forward a call
+    graphed = GraphedForward(net)
+
     def model(labels, scale=1.0):
+        fwd = net if scale == 1.0 else graphed
+
         def eps(x, lab):
             labels.append(lab)
-            return net(x, lab * scale)
+            return fwd(x, lab * scale)
         return eps
 
     def discrete(alg):
@@ -1373,11 +1500,11 @@ def ode(net32, drive, per_fwd):
 
     sde = VPSDE()
 
-    def run(scale=1.0, calls=None):
+    def run(net, scale=1.0, calls=None):
         def apply(x, lab):
             if calls is not None:
                 calls.append(1)
-            return net32(x, lab * scale)
+            return net(x, lab * scale)
         gen = torch.Generator(device="cuda").manual_seed(SEED + 54)
         with torch.no_grad():
             return get_ode_sampler(
@@ -1387,13 +1514,17 @@ def ode(net32, drive, per_fwd):
     calls = []
     tr = time.perf_counter()
     with drive("ode", lambda: expect_counts(per_fwd, len(calls))):
-        out, nfe = run(calls=calls)
+        out, nfe = run(net32, calls=calls)
     wall = time.perf_counter() - tr
     if nfe > ODE_MAX_NFE:
         raise AssertionError(f"samplers ode: nfe {nfe} > {ODE_MAX_NFE}")
+    # the plain-version run and the control replay one captured forward a
+    # call (the same kernels or plain versions as eager)
     with plain_convs_and_norms():
-        want, nfe_plain = run()
-    ctl, nfe_ctl = run(1.01)
+        plain = GraphedForward(net32)
+        want, nfe_plain = run(plain)
+    ctl, nfe_ctl = run(GraphedForward(net32), 1.01)
+    del plain
     err, err_ctl = rel_l2(out, want), rel_l2(ctl, want)
     res = dict(rtol=ODE_RTOL, atol=ODE_RTOL, rtol_jax_default=1e-5,
                reduction=f"rtol = atol = {ODE_RTOL:g} instead of 1e-5",
@@ -1617,11 +1748,15 @@ def eval_controllable(net32, drive, per_fwd):
               corrector=cfg.sampling.corrector, snr=cfg.sampling.snr,
               n_steps=cfg.sampling.n_steps_each, device="cuda")
 
-    def run(kind, scale=1.0, calls=None):
+    # the plain-version runs and the controls replay one captured forward
+    # a call (the plain versions captured under plain_convs_and_norms)
+    plain, graphed = GraphedForward(net32), GraphedForward(net32)
+
+    def run(kind, scale=1.0, calls=None, fwd=net32):
         def apply(x, lab):
             if calls is not None:
                 calls.append(1)
-            return net32(x, lab * scale)
+            return fwd(x, lab * scale)
         score = get_score_fn(sde, apply, continuous=cfg.sde.continuous)
         g = torch.Generator(device="cuda").manual_seed(SEED + 63)
         if kind == "inpaint":
@@ -1638,8 +1773,9 @@ def eval_controllable(net32, drive, per_fwd):
             out = run(kind, calls=calls)
         wall = time.perf_counter() - tr
         with plain_convs_and_norms():
-            want = run(kind)
-        err, err_ctl = rel_l2(out, want), rel_l2(run(kind, 1.01), want)
+            want = run(kind, fwd=plain)
+        err, err_ctl = rel_l2(out, want), rel_l2(run(kind, 1.01,
+                                                     fwd=graphed), want)
         if kind == "inpaint":
             known = float((out - data)[mask == 1].abs().max())
         else:
@@ -2614,10 +2750,10 @@ def phase_dit_kernels(details):
 
 def profile_dit_forward(torch, model, z0, y):
     """Device time of one bf16 CFG forward (modulations hoisted) by kernel
-    name, from ``torch.profiler``: the sum over the kernels that ran, the
-    wall time around the profiled call, and the 8 largest kernels.  A
-    profiler that records no device time gives ``device_ms = None``."""
-    from torch.profiler import ProfilerActivity, profile
+    name, from ``torch.profiler`` (``device_profile``): the sum over the
+    kernels that ran, the wall time around the profiled call, and the 8
+    largest kernels.  A profiler that records no device time gives
+    ``device_ms = None``."""
     from naturaldiffusion_tpu_torch.models.dit import (dit_schedule_mods,
                                                        forward_with_cfg)
     cfg = model.config
@@ -2633,23 +2769,12 @@ def profile_dit_forward(torch, model, z0, y):
                 DIT_CFG_SCALE, cfg.in_channels)
         fwd()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            tw = time.perf_counter()
-            fwd()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - tw
-    kern = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")
-            and e.self_device_time_total > 0]
-    dev_us = sum(e.self_device_time_total for e in kern)
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    wall_ms, kern = device_profile(torch, fwd)
+    dev_ms = sum(ms for _, ms in kern.values())
     return dict(
-        device_ms=dev_us / 1e3 if dev_us else None,
-        wall_ms_profiled=wall * 1e3, kernel_launches=sum(e.count
-                                                         for e in kern),
-        top=[(e.key[:60], e.count, e.self_device_time_total / 1e3)
-             for e in top])
+        device_ms=dev_ms or None, wall_ms_profiled=wall_ms,
+        kernel_launches=sum(n for n, _ in kern.values()),
+        top=top_kernels(kern))
 
 
 def dit_inputs(torch, cfg, gen, device):
@@ -3188,6 +3313,388 @@ def phase_ve_slice(cfg, model_f32, sigs, smi):
     return counts
 
 
+# ------------------------------------------------------------ backbones
+
+def zoo_model(name, seed):
+    """A zoo entry's config and its model through ``models.create_model``
+    on the CPU, every weight random from ``seed``."""
+    from naturaldiffusion_tpu_torch import configs
+    from naturaldiffusion_tpu_torch.models import create_model
+    cfg = configs.get_config(name)
+    net = create_model(cfg.model_family, cfg.model, device="cpu")
+    return cfg, randomize_(net, seed).eval()
+
+
+def check_model_kernels(model, x, t, what):
+    """Every kernel call of one forward of ``model`` on ``x``, ``t``
+    (``kernel_signatures``: K2, K3, K4 and K6, each signature once) against
+    its plain version on fresh inputs, f32 and bf16; returns the signatures
+    and the rows."""
+    import torch
+    from naturaldiffusion_tpu_torch.ops import conv3x3 as C
+    from naturaldiffusion_tpu_torch.ops import group_norm as G
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    sigs = kernel_signatures(model, x, t)
+    rows = []
+    for (kind, sig), n in sigs.items():
+        row = dict(kind=kind, sig=repr(sig), per_forward=n)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype)
+            if kind != "group_norm":
+                row[f"err_{dn}"], _, row[f"stats_err_{dn}"] = check_conv(
+                    torch, C, kind, sig, dtype, gen, f"{what} ")
+                continue
+            (b, h, w, c), groups, act, _ = sig
+            xx, sc, bi, eb = gn_inputs(torch, sig, dtype, gen)
+            row["form"] = G._gn_plan(b, h, w, c, groups,
+                                     xx.element_size())["form"]
+            row[f"err_{dn}"] = check_close(
+                f"{what} K6 {sig} {dn}",
+                G.fused_group_norm(xx, sc, bi, groups, act=act,
+                                   extra_bias=eb),
+                G.fused_group_norm_reference(xx, sc, bi, groups, act=act,
+                                             extra_bias=eb),
+                F32_TOL if dtype == torch.float32 else BF16_TOL)[0]
+        rows.append(row)
+    print(f"  {what}: {len(rows)} kernel signatures against their plain "
+          f"versions, max abs err {max(v for r in rows for k, v in r.items() if k.startswith('err_')):.3e}",
+          flush=True)
+    return sigs, rows
+
+
+def time_conv(sig, kind, timer, gen):
+    """One bf16 conv signature timed: the kernel, the plain version,
+    ``F.conv2d`` on channels-last views, and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from naturaldiffusion_tpu_torch.ops import conv3x3 as C
+    xx, ww, bb, _, _ = conv_inputs(torch, sig, torch.bfloat16, gen)
+    xcl = xx.permute(0, 3, 1, 2)
+    wcl = ww.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    row = dict(sig=repr(sig), per_forward=1,
+               ms=timer(lambda: getattr(C, kind)(xx, ww, bb)),
+               plain_ms=timer(lambda: C.conv3x3_gn_reference(xx, ww, bb)),
+               library_ms=timer(lambda: F.conv2d(xcl, wcl, bb, padding=1)),
+               plan=plan_of(sig))
+    row["flops"], row["bytes"], row["bound_ms"], row["bound_by"] = \
+        conv_cost(sig, 2, "torch.bfloat16")
+    print_conv_row(kind, row)
+    return row
+
+
+def backbones_ddpm(drive, smi):
+    """(a) The CIFAR-10 DDPM under 10-step DDPM NI, batch 64, bf16, through
+    ``cifar10_ni.make_sampler``: the eager run, the graphed sampler's build
+    (warm-up and capture) and a replay, each drive's launches against the
+    walk's; graph against eager; 2 samples in f32 and bf16 against a CPU
+    f32 run with the same noises, beside the slice's two controls; every
+    K2 and K6 shape of its forward, and each Q1 shape under int8_static
+    bit for bit, against their plain versions."""
+    import torch
+    from naturaldiffusion_tpu_torch.apps.cifar10_ni import make_sampler
+    from naturaldiffusion_tpu_torch.coeffs import registry
+    from naturaldiffusion_tpu_torch.ops import quant as Q
+
+    _, model = zoo_model(DDPM_CONFIG, SEED + 70)
+    params = sum(p.numel() for p in model.parameters())
+    matrix = registry.derive("ddpm", STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    init = torch.randn((BATCH, 32, 32, 3), generator=gen, device="cuda")
+    noises = torch.randn((STEPS, BATCH, 32, 32, 3), generator=gen,
+                         device="cuda")
+    net16 = copy.deepcopy(model).to(device="cuda", dtype=torch.bfloat16)
+    per_fwd = per_forward_counts(net16, torch.bfloat16, BATCH)
+    if per_fwd != DDPM_PER_FORWARD:
+        raise AssertionError(f"ddpm: launches a forward {per_fwd} != "
+                             f"{DDPM_PER_FORWARD}")
+    eager = make_sampler(model, matrix, micro=BATCH, device="cuda")
+    graphed = make_sampler(model, matrix, micro=BATCH, device="cuda",
+                           graph=True)
+    eager(init, noises=noises)                  # warm-up
+    torch.cuda.synchronize()
+    te = time.perf_counter()
+    with drive("ddpm eager NI", lambda: expect_counts(per_fwd, STEPS,
+                                                      STEPS)):
+        out = eager(init, noises=noises)
+    wall_eager = time.perf_counter() - te
+    with drive("ddpm graph build", lambda: expect_counts(
+            per_fwd, 2 * STEPS, 2 * STEPS)):
+        built = graphed(init, noises=noises)
+    tg = time.perf_counter()
+    with drive("ddpm graph replay", lambda: expect_counts(per_fwd, 0)):
+        replay = graphed(init, noises=noises)
+    wall_graph = time.perf_counter() - tg
+    err_graph = max(rel_l2(built, out), rel_l2(replay, out))
+    if not (torch.isfinite(out).all() and out.shape == init.shape
+            and err_graph <= BENCH_GRAPH_TOL):
+        raise AssertionError(f"ddpm: graph against eager {err_graph:.3e} "
+                             f"> {BENCH_GRAPH_TOL:g}, or non-finite")
+
+    tc = time.perf_counter()
+    cpu = make_sampler(model, matrix, micro=BATCH, dtype=torch.float32,
+                       device="cpu")
+    want = cpu(init[:2].cpu(), noises=noises[:, :2].cpu())
+    cpu_s = time.perf_counter() - tc
+    got32 = make_sampler(model, matrix, micro=BATCH, dtype=torch.float32,
+                         device="cuda")(init[:2], noises=noises[:, :2])
+    err, err32 = rel_l2(out[:2], want), rel_l2(got32, want)
+    ctl_plain, ctl_fault = slice_controls(model, matrix, init[:2],
+                                          noises[:, :2], want)
+    if err > SLICE_TOL or err32 > SLICE_F32_TOL:
+        raise AssertionError(f"ddpm: rel L2 {err:.3e} (bf16, tol "
+                             f"{SLICE_TOL:g}), {err32:.3e} (f32, tol "
+                             f"{SLICE_F32_TOL:g})")
+    del eager, graphed
+
+    x16 = init.to(torch.bfloat16)
+    tc = torch.full((BATCH,), 500.0, device="cuda")
+    sigs, rows = check_model_kernels(net16, x16, tc, "ddpm")
+    if {k for k, _ in sigs} != {"conv3x3", "group_norm"}:
+        raise AssertionError(f"ddpm: kernels {sorted({k for k, _ in sigs})}")
+    amax = Q.static_amax()
+    g8 = torch.Generator(device="cuda").manual_seed(SEED + 73)
+    q_sigs = int8_signatures(net16, x16, tc)
+    if sum(q_sigs.values()) != DDPM_INT8_PER_FORWARD:
+        raise AssertionError(f"ddpm: {sum(q_sigs.values())} int8 convs a "
+                             f"forward, not {DDPM_INT8_PER_FORWARD}")
+    q_counts = per_forward_counts(net16, torch.bfloat16, BATCH,
+                                  BENCH_DEFAULT_FORM[:2])
+    if q_counts["conv3x3_int8"] != DDPM_INT8_PER_FORWARD:
+        raise AssertionError(f"ddpm int8_static: launches {q_counts}")
+    for (xs, ws) in q_sigs:
+        xx = (2.0 * torch.randn(xs, generator=g8, device="cuda")).to(
+            torch.bfloat16)
+        wt = (torch.randn(ws, generator=g8, device="cuda")
+              / math.sqrt(9 * xs[3])).to(torch.bfloat16)
+        bias = (0.1 * torch.randn(ws[3], generator=g8, device="cuda")).to(
+            torch.bfloat16)
+        w_i8, s_w, wk = Q.quantize_conv_weight(wt)
+        got = Q.conv3x3_int8(xx, None, bias, w_i8=w_i8, s_w=s_w, w_kern=wk,
+                             act_amax=amax)
+        if not torch.equal(got, Q.conv3x3_int8_reference(
+                xx, w_i8, s_w, bias, act_amax=amax)):
+            raise AssertionError(f"ddpm Q1 {xs} -> {ws[3]}: differs from "
+                                 f"the plain version")
+    row = dict(config=DDPM_CONFIG, params=params, batch=BATCH, steps=STEPS,
+               per_forward=per_fwd, cpu_oracle_s=cpu_s,
+               img_per_s_graphed=BATCH / wall_graph,
+               img_per_s_eager=BATCH / wall_eager,
+               rel_l2_graph_vs_eager=err_graph, tol_graph=BENCH_GRAPH_TOL,
+               rel_l2_bf16_vs_cpu_f32=err, tol=SLICE_TOL,
+               rel_l2_f32_vs_cpu_f32=err32, tol_f32=SLICE_F32_TOL,
+               control_plain_bf16_rel_l2=ctl_plain,
+               control_time_1pct_off_rel_l2=ctl_fault,
+               k2_shapes=sum(k == "conv3x3" for k, _ in sigs),
+               k6_shapes=sum(k == "group_norm" for k, _ in sigs),
+               q1_shapes=len(q_sigs), q1_per_forward=DDPM_INT8_PER_FORWARD,
+               q1_bitwise_equal=True, card=smi)
+    print(f"  ddpm: {json.dumps(row)}", flush=True)
+    del net16, model
+    return row
+
+
+def backbones_ddpm_256(drive, timer):
+    """(b) One bf16 forward of the CelebA-HQ 256 DDPM at one image: its
+    launches, and every kernel shape of it (K4 at the 128-channel 256^2 and
+    128^2 convs) against the plain versions; the largest K4 shape timed."""
+    import torch
+    _, model = zoo_model(DDPM_256_CONFIG, SEED + 72)
+    net = model.to(device="cuda", dtype=torch.bfloat16)
+    x = torch.rand((1, 256, 256, 3), generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 74), device="cuda").to(
+        torch.bfloat16)
+    t = torch.full((1,), 500.0, device="cuda")
+    per_fwd = per_forward_counts(net, torch.bfloat16, 1, hw=256)
+    with drive("ddpm 256 forward", lambda: expect_counts(per_fwd, 1)), \
+            torch.no_grad():
+        out = net(x, t)
+    if not (torch.isfinite(out).all() and out.shape == x.shape
+            and per_fwd["conv3x3_tiled"] > 0):
+        raise AssertionError(f"ddpm 256: launches {per_fwd}, or non-finite")
+    sigs, rows = check_model_kernels(net, x, t, "ddpm 256")
+    k4 = max((s for k, s in sigs if k == "conv3x3_tiled"),
+             key=lambda s: math.prod(s[0]) * s[1][3])
+    timed = time_conv(k4, "conv3x3_tiled", timer, torch.Generator(
+        device="cuda").manual_seed(SEED + 75))
+    res = dict(config=DDPM_256_CONFIG,
+               params=sum(p.numel() for p in model.parameters()),
+               per_forward=per_fwd,
+               k4_shapes=sum(k == "conv3x3_tiled" for k, _ in sigs),
+               k6_forms=sorted({r["form"] for r in rows
+                                if r["kind"] == "group_norm"}),
+               k4_timed=timed)
+    del net, model
+    return res
+
+
+def backbones_refinenets(drive):
+    """(c) NCSNv2 and NCSN at 32^2, f32, the card against the CPU at one
+    image; NCSNv2_128 at 128^2 in bf16 against the card's f32 beside a
+    1 %-off input control; annealed Langevin over NCSN (``ve/ncsn/*``'s
+    sampling) through ``get_pc_sampler``.  No kernel of the port is on
+    these paths (their convs are library convs, as the JAX package's are
+    XLA): each drive must count none."""
+    import torch
+    from naturaldiffusion_tpu_torch.samplers.pc import get_pc_sampler
+    from naturaldiffusion_tpu_torch.sde import VESDE, get_score_fn
+    none = {k: 0 for k in bench_counters()}
+    gen = torch.Generator().manual_seed(SEED + 76)
+    res = {}
+    for name, seed in ((NCSNV2_CONFIG, SEED + 77), (NCSN_CONFIG, SEED + 78)):
+        cfg, model = ncsn = zoo_model(name, seed)   # NCSN last: ALD's
+        x = torch.rand((1, 32, 32, 3), generator=gen)
+        lab = torch.tensor([cfg.model.num_scales // 3], dtype=torch.float32)
+        card = copy.deepcopy(model).to("cuda")
+        with drive(f"{name} forward", lambda: none), torch.no_grad():
+            got = card(x.cuda(), lab.cuda())
+        with torch.no_grad():
+            want = model(x, lab)
+        err = rel_l2(got, want)
+        res[name] = dict(family=cfg.model_family, rel_l2=err,
+                         params=sum(p.numel() for p in model.parameters()))
+        if not (torch.isfinite(got).all() and err <= FORWARD_TOL):
+            raise AssertionError(f"{name}: card against CPU rel L2 "
+                                 f"{err:.3e} > {FORWARD_TOL:g}")
+        del card
+    cfg, model = zoo_model(NCSNV2_128_CONFIG, SEED + 79)
+    net32 = model.to("cuda")
+    net16 = copy.deepcopy(net32).to(torch.bfloat16)
+    x = torch.rand((1, 128, 128, 3), generator=gen).cuda()
+    lab = torch.full((1,), 500.0, device="cuda")
+    with torch.no_grad():
+        want = net32(x, lab)
+        with drive(f"{NCSNV2_128_CONFIG} forward", lambda: none):
+            got = net16(x.to(torch.bfloat16), lab)
+        ctl = net16((x * 1.01).to(torch.bfloat16), lab)
+    err, err_ctl = rel_l2(got, want), rel_l2(ctl, want)
+    res[NCSNV2_128_CONFIG] = dict(
+        family=cfg.model_family, rel_l2_bf16_vs_f32=err,
+        tol=NCSNV2_BF16_TOL, control_input_1pct_off_rel_l2=err_ctl,
+        params=sum(p.numel() for p in model.parameters()))
+    if not (torch.isfinite(got).all() and err <= NCSNV2_BF16_TOL):
+        raise AssertionError(f"{NCSNV2_128_CONFIG}: bf16 against f32 rel "
+                             f"L2 {err:.3e} > {NCSNV2_BF16_TOL:g}")
+    del net16, net32, model
+
+    cfg, model = ncsn
+    net = model.to("cuda")
+    sde = VESDE(sigma_min=cfg.sde.sigma_min, sigma_max=cfg.sde.sigma_max,
+                N=cfg.sde.num_scales)
+    shape = (ALD_BATCH, 32, 32, 3)
+    sampler = get_pc_sampler(
+        sde, get_score_fn(sde, net, continuous=cfg.sde.continuous), shape,
+        predictor=cfg.sampling.predictor, corrector=cfg.sampling.corrector,
+        snr=cfg.sampling.snr, n_steps=ALD_STEPS_EACH, device="cuda")
+    tr = time.perf_counter()
+    with drive("ncsn ald", lambda: none):
+        out, nfe = sampler(torch.Generator(device="cuda").manual_seed(
+            SEED + 81))
+    wall = time.perf_counter() - tr
+    res["ald"] = dict(config=NCSN_CONFIG, sigmas=sde.N,
+                      n_steps_each=ALD_STEPS_EACH,
+                      n_steps_each_in_config=cfg.sampling.n_steps_each,
+                      reduction=f"n_steps_each = {ALD_STEPS_EACH} instead "
+                                f"of {cfg.sampling.n_steps_each}",
+                      batch=ALD_BATCH, nfe=nfe, wall_s=wall,
+                      sample_abs_max=float(out.abs().max()))
+    if not (torch.isfinite(out).all() and out.shape == shape
+            and nfe == sde.N * (ALD_STEPS_EACH + 1)
+            and cfg.sampling.predictor == "none"
+            and cfg.sampling.corrector == "ald"):
+        raise AssertionError(f"ncsn ald: {res['ald']}")
+    del net, model
+    return res
+
+
+def backbones_ncsnpp_1024(drive, timer):
+    """(d) One forward of the 1024^2 NCSN++ at one image: the bf16 kernels
+    and the f32 kernels against the f32 plain versions on the card, beside
+    a 1 %-off sigma control; its launches and ms; every kernel shape of
+    the forward (the C < 128 convs at 256^2-1024^2 on K2) against the plain
+    versions; the largest K2 shape and K6 at 1024^2 x 16 timed."""
+    import torch
+    _, model = zoo_model(NCSNPP_1024_CONFIG, SEED + 82)
+    net32 = model.to("cuda")
+    net16 = copy.deepcopy(net32).to(torch.bfloat16)
+    x = torch.rand((1, 1024, 1024, 3), generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 83), device="cuda")
+    x16 = x.to(torch.bfloat16)
+    sigma = torch.full((1,), 50.0, device="cuda")
+    per_fwd = per_forward_counts(net16, torch.bfloat16, 1, hw=1024,
+                                 label=50.0)
+    with torch.no_grad():
+        with drive("ncsnpp 1024 forward", lambda: expect_counts(per_fwd, 1)):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = net16(x16, sigma)
+            e.record()
+            e.synchronize()
+        fwd_ms = s.elapsed_time(e)
+        got32 = net32(x, sigma)
+        with plain_convs_and_norms():
+            want = net32(x, sigma)
+            plain16 = net16(x16, sigma)
+        ctl = net16(x16, sigma * 1.01)
+    err, err32, err_ctl = (rel_l2(out, want), rel_l2(got32, want),
+                           rel_l2(ctl, want))
+    if not (torch.isfinite(out).all() and out.shape == x.shape
+            and err <= NCSNPP_1024_TOL and err32 <= FORWARD_TOL):
+        raise AssertionError(f"ncsnpp 1024: rel L2 {err:.3e} (bf16, tol "
+                             f"{NCSNPP_1024_TOL:g}), {err32:.3e} (f32, "
+                             f"tol {FORWARD_TOL:g})")
+    sigs, rows = check_model_kernels(net16, x16, sigma, "ncsnpp 1024")
+    narrow = [s for k, s in sigs if k != "group_norm"
+              and min(s[0][3], s[1][3]) < 128 and s[0][1] >= 256]
+    gn1024 = ((1, 1024, 1024, 16), 4, "silu", None)
+    if not narrow or any(k != "conv3x3" for k, s in sigs if s in narrow) \
+            or not any(k == "group_norm" and s[:2] == gn1024[:2]
+                       for k, s in sigs):
+        raise AssertionError(f"ncsnpp 1024: signatures {sorted(sigs)}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 84)
+    k2 = max(narrow, key=lambda s: math.prod(s[0]) * s[1][3])
+    timed = dict(conv3x3=time_conv(k2, "conv3x3", timer, gen),
+                 group_norm=k6_row(torch, gn1024, 2, timer, gen))
+    print_k6_row(timed["group_norm"])
+    res = dict(config=NCSNPP_1024_CONFIG,
+               params=sum(p.numel() for p in model.parameters()),
+               per_forward=per_fwd, forward_ms_bf16=fwd_ms,
+               rel_l2_bf16_vs_plain_f32=err, tol=NCSNPP_1024_TOL,
+               rel_l2_f32_vs_plain_f32=err32, tol_f32=FORWARD_TOL,
+               control_plain_bf16_rel_l2=rel_l2(plain16, want),
+               control_sigma_1pct_off_rel_l2=err_ctl,
+               narrow_conv_shapes=len(narrow),
+               shapes_checked=len(rows),
+               k6_forms=sorted({r["form"] for r in rows
+                                if r["kind"] == "group_norm"}))
+    del net16, net32, model
+    return res, timed
+
+
+def phase_backbones(smi, details):
+    """The other backbones through their zoo entries: (a) the CIFAR DDPM
+    under NI, (b) the 256^2 DDPM, (c) NCSNv2, NCSN and ALD, (d) the 1024^2
+    NCSN++.  Its launches are the drives' (``Drive``)."""
+    import torch
+    t0 = time.perf_counter()
+    drive = Drive("backbones")
+    timer = Timer(torch, reps=5)
+    parts, res = {}, {}
+    for part, fn in (("ddpm", lambda: backbones_ddpm(drive, smi)),
+                     ("ddpm_256", lambda: backbones_ddpm_256(drive, timer)),
+                     ("refinenets", lambda: backbones_refinenets(drive)),
+                     ("ncsnpp_1024", lambda: backbones_ncsnpp_1024(
+                         drive, timer))):
+        tp = time.perf_counter()
+        res[part] = fn()
+        torch.cuda.empty_cache()
+        parts[part] = time.perf_counter() - tp
+    res["ncsnpp_1024"], details["backbones_timed"] = res["ncsnpp_1024"]
+    details["backbones"] = res
+    phase("backbones", t0, card=smi, **res, seconds_by_part=parts,
+          launches=drive.total)
+    return drive.total
+
+
 # ------------------------------------------------------------ tooling path
 
 def check_abs(what, got, want, atol):
@@ -3208,7 +3715,7 @@ def attn_cost(b, h, t, d, itemsize):
         "torch.bfloat16"] >= nbytes / HBM_BYTES_PER_S else "bytes")
 
 
-def phase_tool_kernels(details):
+def phase_tool_kernels(details, child):
     """K10 and ``mha_joint`` at SD3's lengths, K8 at the level-0
     activations, K9 at SD3's length: checked, then timed in bf16.  Returns
     the kernels' rows and K8's path counts."""
@@ -3284,7 +3791,7 @@ def phase_tool_kernels(details):
                        key=lambda n: jt[f"{n}_ms"])
     # where mha_joint's time goes: device time by kernel of one call, in a
     # fresh process (see profile_joint_in_child), which must list K10
-    prof = profile_joint_in_child()
+    prof = profile_joint_in_child(child)
     jt["profiled_device_ms"] = prof["device_ms"]
     jt["profiled_kernels"] = prof["kernels"]
     jt["profiled_top"] = prof["top"]
@@ -3456,10 +3963,13 @@ def phase_tool_kernels(details):
 # launch), which a fresh process lists; so the call is profiled in a fresh
 # process, and the in-process profile is kept beside it for the record
 _JOINT_PROFILE = f"""
-import json, math, torch
+import json, math, sys, torch
 from torch.profiler import ProfilerActivity, profile
 from chip_smoke import kernel_summary
 from naturaldiffusion_tpu_torch.ops import attention as A
+torch.zeros(1, device="cuda")
+if not sys.stdin.readline():          # the parent has gone
+    sys.exit(0)
 gen = torch.Generator(device="cuda").manual_seed({SEED} + 32)
 q, k, v = (torch.randn(({SD3_B}, {SD3_H}, {SD3_LAT + SD3_CTX}, {SD3_D}),
                        generator=gen, device="cuda").bfloat16()
@@ -3490,16 +4000,40 @@ def kernel_summary(kern):
              for e in kern[:8]])
 
 
-def profile_joint_in_child():
+def start_joint_profile():
+    """The child process of :func:`profile_joint_in_child`, started early:
+    it imports torch, the profiler and the attention module and sets up the
+    card, then waits for a line on its stdin, so its start-up (seconds of
+    host time) runs beside the other phases."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (root, os.environ.get("PYTHONPATH")) if p))
-    res = subprocess.run([sys.executable, "-c", _JOINT_PROFILE], cwd=root,
-                         env=env, capture_output=True, text=True,
-                         timeout=180)
-    if res.returncode != 0:
-        raise AssertionError(f"mha_joint profile: {res.stderr[-2000:]}")
-    return json.loads(res.stdout.strip().splitlines()[-1])
+    return subprocess.Popen([sys.executable, "-c", _JOINT_PROFILE],
+                            cwd=root, env=env, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def stop_process(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def profile_joint_in_child(child):
+    """Device time by kernel of one ``mha_joint`` call, profiled in a fresh
+    process (late in a long process the profiler drops device records at
+    the start of a short window): ``child`` from :func:`start_joint_profile`
+    runs it when told."""
+    try:
+        out, err = child.communicate("go\n", timeout=180)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.communicate()
+        raise
+    if child.returncode != 0:
+        raise AssertionError(f"mha_joint profile: {err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def phase_attention_bench():
@@ -3610,6 +4144,9 @@ def main(argv=None) -> int:
                                "naturaldiffusion_tpu_torch.apps.bench", [])
         phase_build()
         bench_flops = int(counting.result())
+    # tool_kernels' profiling child, started now and stopped at exit
+    child = start_joint_profile()
+    atexit.register(stop_process, child)
     model = randomize_(NCSNpp(CIFAR10_DDPMPP_CONTINUOUS, device="cpu"),
                        SEED).eval()
     details = {}
@@ -3646,8 +4183,9 @@ def main(argv=None) -> int:
     phase_ve_forward(ve32)
     ve_launches = phase_ve_slice(ve_cfg, ve32, ve_sigs, smi)
     del ve32
+    backbone_launches = phase_backbones(smi, details)
 
-    tool_kernels, k8_launches, k9_long = phase_tool_kernels(details)
+    tool_kernels, k8_launches, k9_long = phase_tool_kernels(details, child)
     kernels += tool_kernels
     attn_launches, attn_rows = phase_attention_bench()
     dit_toy, conv_row = phase_tool_trace()
@@ -3663,6 +4201,7 @@ def main(argv=None) -> int:
                "dit_slice": dit_runs["float"]["launches"],
                "dit_slice_w8": dit_runs["w8"]["launches"],
                "ve_slice": ve_launches,
+               "backbones": backbone_launches,
                "samplers": sampler_launches,
                "eval": eval_launches,
                "attention_bench": attn_launches,

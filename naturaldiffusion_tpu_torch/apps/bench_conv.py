@@ -119,6 +119,9 @@ def bench_model(name, batch=2, reps=4, runs=5, dtype=torch.bfloat16,
 
     dev = resolve_device(device)
     cfg = configs.get_config(name)
+    if cfg.model_family != "ncsnpp":
+        raise ValueError(f"{name} is a {cfg.model_family} config; the "
+                         f"in-model A/B runs NCSN++ configs")
     model = randomize_(NCSNpp(cfg.model, device="cpu"), seed)
     model = model.to(device=dev, dtype=dtype).eval()
     sz, ch = cfg.model.image_size, cfg.model.num_channels

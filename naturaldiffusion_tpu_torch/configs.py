@@ -1,14 +1,16 @@
-"""Config presets of the port (the NCSN++ part of
-``naturaldiffusion_tpu/configs.py``): ``get_config(name)`` lifts an entry of
-:mod:`.configs_zoo` into typed model, SDE and sampling configs, and
-:func:`get_sde` builds its SDE (VE, VP or sub-VP)."""
+"""Config presets of the port (``naturaldiffusion_tpu/configs.py``):
+``get_config(name)`` lifts an entry of :mod:`.configs_zoo` into typed model,
+SDE and sampling configs (the model's config class is the one the model
+registry holds for the entry's ``model_family``, JAX ``configs.py:79-104``),
+and :func:`get_sde` builds its SDE (VE, VP or sub-VP).
+``models.create_model(cfg.model_family, cfg.model)`` builds the model."""
 
 from __future__ import annotations
 
 import dataclasses
 
 from .configs_zoo import ZOO
-from .models.ncsnpp import NCSNppConfig
+from .models import get_model
 from .sde import SDE, SubVPSDE, VESDE, VPSDE
 
 
@@ -37,22 +39,20 @@ class SamplingConfig:
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     name: str
-    model: NCSNppConfig
+    model_family: str           # a registry name (models.create_model)
+    model: object
     sde: SDEConfig
     sampling: SamplingConfig
 
 
-CONFIGS = {name: ExperimentConfig(name=name,
-                                  model=NCSNppConfig(**e["model"]),
-                                  sde=SDEConfig(**e["sde"]),
-                                  sampling=SamplingConfig(**e["sampling"]))
-           for name, e in ZOO.items()}
+CONFIGS = {name: ExperimentConfig(
+    name=name, model_family=e["family"],
+    model=get_model(e["family"])[1](**e["model"]),
+    sde=SDEConfig(**e["sde"]), sampling=SamplingConfig(**e["sampling"]))
+    for name, e in ZOO.items()}
 
 
 def get_config(name: str) -> ExperimentConfig:
-    if name not in CONFIGS:
-        raise KeyError(f"{name!r} is not ported yet (ported: "
-                       f"{sorted(CONFIGS)})")
     return CONFIGS[name]
 
 

@@ -31,7 +31,8 @@ def _flatten(tree, prefix, out):
 
 
 def load_jax_params(model, params, dtype: torch.dtype | None = None):
-    """Fill ``model`` (the port's ``NCSNpp`` or ``DiT``) from a flax param
+    """Fill ``model`` (the port's ``NCSNpp``, ``DDPM``, ``NCSNv2``,
+    ``NCSNv2_128``, ``NCSNv2_256``, ``NCSN`` or ``DiT``) from a flax param
     tree.
 
     ``params``: the ``["params"]`` tree of the JAX package's model as
@@ -39,11 +40,15 @@ def load_jax_params(model, params, dtype: torch.dtype | None = None):
     "m3": {"Conv_0": {...}, ...}, ...}`` (matched against ``model.layers``;
     with the VE options also the Fourier projection's ``W``, the pyramid
     GroupNorms and convs, ``Combine``'s ``Conv_0`` and the FIR convs'
-    ``Conv2d_0.weight``),
-    or DiT's ``{"x_embedder_proj": {"kernel" [p,p,C,D] HWIO, "bias"},
+    ``Conv2d_0.weight``), DDPM's walk the same way (its resampling convs
+    ``m{i}_Conv_0``), the RefineNets' ``{"begin_conv": ..., "res1_0":
+    {"normalize1": {"alpha", "gamma", "beta"}, "conv1": ...}, "refine1":
+    ...}`` (NCSN's norms ``{"embed": {"embedding"}}``), or DiT's
+    ``{"x_embedder_proj": {"kernel" [p,p,C,D] HWIO, "bias"},
     "y_embedder_embedding_table": {"embedding"}, "blocks_0": {"attn":
-    {"qkv": ...}, ...}, ...}`` (matched against the model itself; its
-    LayerNorms have no params).  Names and layouts are the same on both
+    {"qkv": ...}, ...}, ...}`` (the last two matched against the model
+    itself; DiT's LayerNorms have no params).  Names and layouts are the
+    same on both
     sides, so each leaf is copied as it is.  With ``dtype`` the model is cast
     first (e.g. ``torch.bfloat16``).  Raises on a missing, extra or
     mis-shaped leaf.  Returns the model."""
@@ -72,17 +77,18 @@ def load_jax_params(model, params, dtype: torch.dtype | None = None):
 
 def randomize_(model, seed: int):
     """Every parameter of ``model`` random from ``seed``, in place, none
-    zero: GroupNorm scales ``1 + 0.1 N(0, 1)``, biases ``0.1 N(0, 1)``,
-    other weights ``N(0, 1 / fan_in)``.  The JAX init zeroes the residual
+    zero: GroupNorm scales and InstanceNorm++'s ``gamma`` and ``alpha``
+    ``1 + 0.1 N(0, 1)``, biases (and ``beta``) ``0.1 N(0, 1)``, other
+    weights ``N(0, 1 / fan_in)``.  The JAX init zeroes the residual
     and head convs, which would hide a wrong conv from a check or a bench.
     Returns the model."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf == "scale":
+            if leaf in ("scale", "gamma", "alpha"):
                 v = 1.0 + 0.1 * torch.randn(p.shape, generator=g)
-            elif leaf in ("bias", "b"):
+            elif leaf in ("bias", "b", "beta"):
                 v = 0.1 * torch.randn(p.shape, generator=g)
             else:
                 v = torch.randn(p.shape, generator=g) / math.sqrt(
@@ -180,14 +186,16 @@ def ncsnpp_torch_path_map(path: tuple[str, ...]) -> str:
 
 def fill_from_torch(model, state_dict: Mapping[str, object], path_map=None,
                     root: str = "") -> list[str]:
-    """Fill ``model`` (the port's ``NCSNpp``, its walk in ``layers``, or
-    ``DiT``) in place from a torch state dict, e.g. from
-    :func:`load_torch_checkpoint`.
+    """Fill ``model`` (the port's ``NCSNpp`` or ``DDPM``, their walks in
+    ``layers``, a RefineNet of ``models.ncsnv2``, or ``DiT``) in place from
+    a torch state dict, e.g. from :func:`load_torch_checkpoint`.
 
     Each parameter's module path goes through ``path_map`` (default
-    :func:`ncsnpp_torch_path_map`; DiT's is ``models.dit.
-    dit_torch_path_map``) to a torch key under ``root``, with JAX's
-    transposes.  Raises ``KeyError`` on a missing key and ``ValueError`` on
+    :func:`ncsnpp_torch_path_map`; the others are ``models.ddpm.
+    ddpm_torch_path_map``, ``models.ncsnv2.ncsnv2_torch_path_map`` and
+    ``models.dit.dit_torch_path_map``) to a torch key under ``root``, with
+    JAX's transposes (InstanceNorm++'s ``alpha``, ``gamma`` and ``beta``
+    keep their names, an ``embedding`` is a torch ``weight``).  Raises ``KeyError`` on a missing key and ``ValueError`` on
     a wrong shape; nothing is written unless every parameter is found.
     Returns the unused torch keys."""
     pm = path_map or ncsnpp_torch_path_map

@@ -234,7 +234,9 @@ class PConv1x1(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """GroupNorm(min(c//4, 32)) with float32 statistics (fast variance).
+    """GroupNorm with float32 statistics (fast variance), in
+    ``num_groups`` groups: by default NCSN++'s ``min(c // 4, 32)``; the
+    original DDPM passes a fixed 32.
 
     ``forward`` is the standalone form (kernel K6); :meth:`coeffs` is
     the fused-resblock form: the normalize-affine, with an optional
@@ -244,9 +246,10 @@ class GroupNorm(nn.Module):
     on the fused form, by the kernel's prologue (always SiLU there)."""
 
     def __init__(self, channels: int, act: str | None = None,
-                 eps: float = 1e-6):
+                 eps: float = 1e-6, num_groups: int | None = None):
         super().__init__()
-        self.num_groups = min(channels // 4, 32)
+        self.num_groups = (min(channels // 4, 32) if num_groups is None
+                           else num_groups)
         self.eps = eps
         self.act = act
         self.scale = nn.Parameter(torch.ones(channels))
@@ -265,13 +268,15 @@ class GroupNorm(nn.Module):
 
 
 class AttnBlockpp(nn.Module):
-    """Single-head self-attention over the H*W tokens (``layerspp.py:62-89``)."""
+    """Single-head self-attention over the H*W tokens (``layerspp.py:62-89``);
+    with ``skip_rescale=False`` and ``num_groups=32`` the original DDPM's
+    ``AttnBlock`` (JAX ``ddpm.py:55``)."""
 
     def __init__(self, channels: int, skip_rescale: bool = False,
-                 init_scale: float = 0.0):
+                 init_scale: float = 0.0, num_groups: int | None = None):
         super().__init__()
         self.skip_rescale = skip_rescale
-        self.GroupNorm_0 = GroupNorm(channels)
+        self.GroupNorm_0 = GroupNorm(channels, num_groups=num_groups)
         self.NIN_0 = NIN(channels, channels)
         self.NIN_1 = NIN(channels, channels)
         self.NIN_2 = NIN(channels, channels)

@@ -275,15 +275,16 @@ def gn_affine_coeffs(s1, s2, n_spatial: int, scale, bias, num_groups: int,
         tb = extra_bias.to(torch.float32).expand(b, c)
         s2 = s2 + 2.0 * tb * s1 + n_spatial * tb * tb
         s1 = s1 + n_spatial * tb
-    sg = s1.reshape(b, num_groups, gs).sum(-1)
-    s2g = s2.reshape(b, num_groups, gs).sum(-1)
-    mu = sg / n
-    var = s2g / n - mu * mu
+    # in the [B, groups, group size] view a group's mean and inverse std
+    # broadcast over its channels (no per-channel copies: host time a call)
+    grouped = (b, num_groups, gs)
+    mu = s1.reshape(grouped).sum(-1, keepdim=True) / n
+    var = s2.reshape(grouped).sum(-1, keepdim=True) / n - mu * mu
     inv = torch.rsqrt(var + eps)
-    inv_c = inv.repeat_interleave(gs, dim=1)
-    mu_c = mu.repeat_interleave(gs, dim=1)
-    w_c = inv_c * scale.to(torch.float32)
-    b_c = bias.to(torch.float32) - mu_c * w_c
+    w_c = inv * scale.to(torch.float32).reshape(num_groups, gs)
+    b_c = (bias.to(torch.float32).reshape(num_groups, gs)
+           - mu * w_c).reshape(b, c)
+    w_c = w_c.reshape(b, c)
     if extra_bias is not None:
         # the prologue applies x*w_c + b_c to the raw x: fold the tb shift
         # in, (x + tb - mu)*inv*scale + bias

@@ -149,13 +149,16 @@ def none_corrector(sde, score_fn, x, t, noises, *, snr: float = 0.0):
 def get_pc_sampler(sde: SDE, score_fn, shape, *, predictor="reverse_diffusion",
                    corrector="none", snr: float = 0.16, n_steps: int = 1,
                    denoise: bool = True, eps: float = 1e-3, device="cuda"):
-    """Returns ``sampler(generator) -> (x, nfe)`` (JAX ``pc.py:167``): a
-    prior sample, then for each of ``sde.N`` times from T down to ``eps``
-    the corrector (``n_steps`` steps) and the predictor; with ``denoise``
-    the result is the last predictor mean.  The state is float32 [shape] on
-    ``device`` (default ``"cuda"``, which raises without a card);
-    ``score_fn`` gets it as it is.  An unknown predictor or corrector
-    raises ``KeyError``."""
+    """Returns ``sampler(generator, *, prior=None, noises=None) -> (x,
+    nfe)`` (JAX ``pc.py:167``): a prior sample, then for each of ``sde.N``
+    times from T down to ``eps`` the corrector (``n_steps`` steps) and the
+    predictor; with ``denoise`` the result is the last predictor mean.  The
+    state is float32 [shape] on ``device`` (default ``"cuda"``, which
+    raises without a card); ``score_fn`` gets it as it is.  ``prior`` (the
+    prior sample) and ``noises`` (``noises[i]``: step i's corrector noises
+    and predictor noise, each like the state) are drawn from ``generator``
+    unless given, so that a test can feed the ones another implementation
+    drew.  An unknown predictor or corrector raises ``KeyError``."""
     pred, corr = get_predictor(predictor), get_corrector(corrector)
     dev = resolve_device(device)
     n_corr = n_steps if corrector != "none" else 0
@@ -163,17 +166,20 @@ def get_pc_sampler(sde: SDE, score_fn, shape, *, predictor="reverse_diffusion",
         torch.float32)
 
     @torch.no_grad()
-    def sampler(generator: torch.Generator):
+    def sampler(generator: torch.Generator | None = None, *, prior=None,
+                noises=None):
         def normal():
             return torch.randn(shape, generator=generator, device=dev)
 
-        x = sde.prior_sampling(shape, generator, dev)
+        x = (sde.prior_sampling(shape, generator, dev) if prior is None
+             else torch.as_tensor(prior, dtype=torch.float32, device=dev))
         x_mean = x
-        for t in timesteps.to(dev):
+        for i, t in enumerate(timesteps.to(dev)):
+            zc, zp = (([normal() for _ in range(n_corr)], normal())
+                      if noises is None else noises[i])
             tb = t.expand(shape[0])
-            x, _ = corr(sde, score_fn, x, tb, [normal() for _ in
-                                                range(n_corr)], snr=snr)
-            x, x_mean = pred(sde, score_fn, x, tb, normal())
+            x, _ = corr(sde, score_fn, x, tb, zc, snr=snr)
+            x, x_mean = pred(sde, score_fn, x, tb, zp)
         return (x_mean if denoise else x), sde.N * (n_steps + 1)
 
     return sampler

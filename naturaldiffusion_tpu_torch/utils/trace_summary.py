@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import glob
 import gzip
 import json
@@ -58,9 +59,11 @@ def _strip_brackets(name: str, open_c: str, close_c: str) -> str:
     return "".join(out)
 
 
+@functools.lru_cache(maxsize=None)
 def _family(name: str) -> str:
-    # void (anonymous namespace)::flash_kernel<bf16, 64>(...) -> flash_kernel;
-    # at::native::vectorized_elementwise_kernel<4, ...>(...) ->
+    # parsed once per name: a trace repeats a few hundred names over its
+    # events.  void (anonymous namespace)::flash_kernel<bf16, 64>(...) ->
+    # flash_kernel; at::native::vectorized_elementwise_kernel<4, ...>(...) ->
     # vectorized_elementwise_kernel; Memcpy HtoD (Pageable -> Device) ->
     # Memcpy HtoD; ampere_bf16_s16816gemm.2 -> ampere_bf16_s16816gemm
     name = name.replace("(anonymous namespace)::", "")

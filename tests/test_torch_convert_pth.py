@@ -18,7 +18,8 @@ from naturaldiffusion_tpu.models.ncsnpp import NCSNpp as JaxNCSNpp
 from naturaldiffusion_tpu.models.ncsnpp import NCSNppConfig as JaxConfig
 from naturaldiffusion_tpu_torch.models import convert, dit
 from naturaldiffusion_tpu_torch.models.ncsnpp import NCSNpp, NCSNppConfig
-from torch_port_util import SMALL, random_flax_params, rel_l2
+from torch_port_util import (SMALL, random_flax_params, rel_l2,
+                             torch_state_dict)
 
 torch.set_num_threads(2)
 
@@ -87,30 +88,6 @@ def test_shadow_misalignment_raises(tmp_path):
         jconvert.strip_prefixes({"module.model.a": 1, "b": 2})
 
 
-def _torch_state(template, path_map, rng):
-    """A torch state dict in the reference's names and layouts for every
-    leaf of a flax param tree: random values, each transposed from the
-    flax layout by the inverse of JAX's transform."""
-    sd = {}
-    for kp, leaf in jax.tree_util.tree_flatten_with_path(template)[0]:
-        path = tuple(k.key for k in kp)
-        tleaf, _ = jconvert._torch_leaf_and_transform(path)
-        key = path_map(path[:-1]) + "." + tleaf
-        shape = np.asarray(leaf).shape
-        fan_in = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
-        a = rng.standard_normal(shape) / np.sqrt(fan_in)
-        if path[-1] == "scale":
-            a = 1.0 + 0.1 * rng.standard_normal(shape)
-        a = a.astype(np.float32)
-        if path[-1] in ("kernel", "weight") and a.ndim == 4:
-            a = a.transpose(3, 2, 0, 1)
-        elif path[-1] == "kernel":
-            a = a.T
-        sd[key] = torch.from_numpy(np.ascontiguousarray(a))
-    sd["sigmas"] = torch.ones(3)             # a buffer no param reads
-    return sd
-
-
 def test_ncsnpp_filled_from_one_state_dict_matches_jax():
     jm = JaxNCSNpp(config=JaxConfig(**SMALL))
     shapes = jax.eval_shape(
@@ -118,7 +95,7 @@ def test_ncsnpp_filled_from_one_state_dict_matches_jax():
                           jnp.zeros((1,), jnp.float32))["params"],
         jax.random.PRNGKey(0))
     template = random_flax_params(shapes, np.random.default_rng(0))
-    sd = _torch_state(template, convert.ncsnpp_torch_path_map,
+    sd = torch_state_dict(template, convert.ncsnpp_torch_path_map,
                       np.random.default_rng(1))
     params, junused = jconvert.fill_from_torch(template, sd)
     model = NCSNpp(NCSNppConfig(**SMALL), device="cpu")
@@ -149,7 +126,7 @@ def test_dit_filled_from_one_state_dict_matches_jax():
                           jnp.zeros((1,), jnp.int32))["params"],
         jax.random.PRNGKey(0))
     template = random_flax_params(shapes, np.random.default_rng(3))
-    sd = _torch_state(template, jdit.dit_torch_path_map,
+    sd = torch_state_dict(template, jdit.dit_torch_path_map,
                       np.random.default_rng(4))
     assert all(dit.dit_torch_path_map(tuple(k.split("."))) ==
                jdit.dit_torch_path_map(tuple(k.split("."))) for k in

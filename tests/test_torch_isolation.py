@@ -233,6 +233,20 @@ def test_dit_entry_points_refuse_a_missing_card(monkeypatch):
             main(["--steps", "2"])
 
 
+@pytest.mark.parametrize("family", ["ddpm", "ncsnv2_64", "ncsnv2_128",
+                                    "ncsnv2_256", "ncsn"])
+def test_backbones_refuse_a_missing_card(monkeypatch, family):
+    """Each backbone of the registry, by its constructor and through
+    ``create_model``, at its config class's defaults."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from naturaldiffusion_tpu_torch import models
+    cls, cfg_cls = models.get_model(family)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cls(cfg_cls())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        models.create_model(family)
+
+
 @pytest.mark.parametrize("name", ["dpmsolver2s", "ode_heun", "deis_tab",
                                   "flow_euler", "nonexistent"])
 def test_registry_refuses_unported_derivations(name):

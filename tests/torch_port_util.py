@@ -54,3 +54,42 @@ def rel_l2(a, b) -> float:
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def jax_params(module, *args, seed: int = 0) -> dict:
+    """Random weights (:func:`random_flax_params`, from ``seed``) for every
+    leaf of the JAX ``module``'s param tree at inputs like ``args`` (traced
+    by shape only; float32 under ``jax.enable_x64(False)``)."""
+    import jax
+    with jax.enable_x64(False):
+        shapes = jax.eval_shape(
+            lambda k: module.init(k, *args)["params"], jax.random.PRNGKey(0))
+    return random_flax_params(shapes, np.random.default_rng(seed))
+
+
+def torch_state_dict(template, path_map, rng: np.random.Generator) -> dict:
+    """A torch state dict in the reference's names and layouts for every
+    leaf of a flax param tree: random values, each transposed from the
+    flax layout by the inverse of JAX's transform, and one buffer no
+    parameter reads (``sigmas``)."""
+    import jax
+
+    from naturaldiffusion_tpu.models import convert as jconvert
+    sd = {}
+    for kp, leaf in jax.tree_util.tree_flatten_with_path(template)[0]:
+        path = tuple(k.key for k in kp)
+        tleaf, _ = jconvert._torch_leaf_and_transform(path)
+        key = path_map(path[:-1]) + "." + tleaf
+        shape = np.asarray(leaf).shape
+        fan_in = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+        a = rng.standard_normal(shape) / np.sqrt(fan_in)
+        if path[-1] == "scale":
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        a = a.astype(np.float32)
+        if path[-1] in ("kernel", "weight") and a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        elif path[-1] == "kernel":
+            a = a.T
+        sd[key] = torch.from_numpy(np.ascontiguousarray(a))
+    sd["sigmas"] = torch.ones(3)
+    return sd
