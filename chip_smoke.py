@@ -79,8 +79,8 @@ printed as one line with its numbers and seconds as it ends:
            weights one chunk graphed against eager with the same init and
            noises, beside two eager runs as the control and a planted
            fault (one resblock conv zeroed in place) that must exceed the
-           limit.  The bench's FLOP count runs on the CPU during the build
-           phase.
+           limit.  The bench's FLOP count, tool_trace's and the profiler's
+           first session (its set-up) run during the build phase.
   bench_forms   the port bench in ``bench.py``'s own form (its default:
            unfused convs, ``int8_static``) with one 1024-image dispatch,
            then each of ``BENCH_FORMS`` at 2 micro-batches a dispatch;
@@ -139,13 +139,27 @@ printed as one line with its numbers and seconds as it ends:
            launches and ms, every kernel shape checked (the C < 128 convs
            at 256^2-1024^2 on K2), the largest K2 shape and K6 at 1024^2 x
            16 in 4 groups timed.
+  sd3      the SD3 path through ``pipeline.SD3Pipeline`` at SD3-medium's
+           full width (hidden 1536, depth 24, 24 heads of 64), 1024^2,
+           bf16, every model made on the card from seeds: random ids
+           through ``encode_prompt`` (CLIP-L, CLIP-G, T5-XXL: 77 + 256
+           context tokens, t = 4429); K9 on the model's own q, k, v
+           against its plain version, timed beside SDPA; one forward in
+           f32 (K9) against the plain versions at 1e-4, and one forward
+           and a 3-step NI in bf16 against the f32 plain versions within
+           1.5x the bf16 plain control, a 1 %-off time control above it;
+           then one image, warm: ``encode_prompt``, ``__call__`` over the
+           28-step Euler matrix and the VAE decode at 1024^2, its K1 and
+           K9 launches counted, wall, sec/image and one CFG forward
+           profiled (busy share, K9's share); 3 steps under w8 (K7 on the
+           144 latent-stream products a forward).
   tool_kernels  kernel K10 (splash attention, with its logsumexp) against
            its plain version at SD3's three joint lengths, ``mha_joint``
            against one full softmax per row and profiled in a fresh child
            process, which must list K10; kernel K8 (fused leaky ReLU)
-           bit for bit against its plain version, and K9 at SD3's length;
-           each timed as in ``kernels``, K9 and K10 at each length beside
-           SDPA's flash backend.  K8's path: its wrapper at the level-0
+           bit for bit against its plain version; each timed as in
+           ``kernels``, K9 and K10 at each length beside SDPA's flash
+           backend.  K8's path: its wrapper at the level-0
            activations of the CIFAR and VE models (no app calls K8, as in
            the JAX package).
   attention_bench  ``apps.bench_attention`` at its defaults (t = 4096,
@@ -424,6 +438,27 @@ DIT_W8_FORWARD_TOL = 2e-2
 # plain versions in bf16 on the card; the kernels with the time 1 % off
 # read 0.36; 0.1 sits 2.8x above the sound runs and 3.6x below that fault
 DIT_SLICE_TOL = 1e-1
+
+# SD3-medium through SD3Pipeline at 1024^2 (latent 128), bf16: the
+# 28-step Euler matrix (the pipeline's default), CLIP's 77 tokens and T5's
+# 256 (t = 4096 + 333), one image; one CFG forward profiled SD3_PROFILED
+# times over; the check's NI and the w8 run take SD3_ACC_STEPS steps
+SD3_STEPS, SD3_ACC_STEPS, SD3_PROFILED = 28, 3, 3
+SD3_CLIP_LEN, SD3_T5_LEN = 77, 256
+# one SD3-medium CFG forward in f32, K9 against the plain versions on the
+# card (TF32 off), relative L2: K9's f32 path (bf16 hi/lo splits, ~1e-5 a
+# call) through 24 blocks, as DIT_FORWARD_TOL
+SD3_FORWARD_TOL = 1e-4
+# bf16 through the kernels against the f32 plain versions, relative L2, at
+# most this many times the same run through the plain versions in bf16
+# (bf16's own floor at these random weights); the kernels with the time
+# 1 % off must land above that limit
+SD3_CONTROL_FACTOR = 1.5
+# one QDense of each of SD3-medium's latent-stream product shapes (M = 2 x
+# 4096 rows; K x N 1536 x 1536, 1536 x 6144 and 6144 x 1536), where K7 is
+# held against its plain version on the first block's own weights and
+# activations under w8
+SD3_K7_LAYERS = ("attn_to_q", "ff_net_0_proj", "ff_net_2")
 
 # K7 at shapes of no model: ragged M (16 and 272 rows: a part-filled row
 # tile), the narrowest N and the deepest K that qmatmul_ok admits
@@ -3695,6 +3730,371 @@ def phase_backbones(smi, details):
     return drive.total
 
 
+# --------------------------------------------------------------- SD3 path
+
+def sd3_counters():
+    from naturaldiffusion_tpu_torch.ops import attention as A
+    from naturaldiffusion_tpu_torch.ops import qmatmul as Q
+    from naturaldiffusion_tpu_torch.ops import weighted_sum as WS
+    return {"fused_weighted_sum": WS.fused_weighted_sum,
+            "flash_attention": A.flash_attention,
+            "matmul_wdq": Q.matmul_wdq}
+
+
+def sd3_models(torch):
+    """SD3-medium's five models at full width, made on the card from seeds:
+    the MMDiT in f32 (the plain reference) with every weight random
+    (``randomize_dit_``: its init zeroes the adaLN layers and proj_out)
+    and its bf16 copy; CLIP-L, CLIP-G, T5-XXL and the SD3 VAE in bf16 at
+    their own random init."""
+    from naturaldiffusion_tpu_torch.models.mmdit import SD3_MEDIUM, MMDiT
+    from naturaldiffusion_tpu_torch.models.text_encoders import (
+        CLIP_G_SD3, CLIP_L_SD3, T5_XXL, CLIPTextEncoder, T5Encoder)
+    from naturaldiffusion_tpu_torch.models.vae import SD3_VAE, AutoencoderKL
+    bf = torch.bfloat16
+    mm32 = randomize_dit_(MMDiT(SD3_MEDIUM, device="cuda", seed=SEED + 40),
+                          SEED + 41).eval()
+    mm16 = copy.deepcopy(mm32).to(bf)
+    enc = dict(
+        clip_l=CLIPTextEncoder(CLIP_L_SD3, device="cuda", seed=SEED + 42),
+        clip_g=CLIPTextEncoder(CLIP_G_SD3, device="cuda", seed=SEED + 43),
+        t5=T5Encoder(T5_XXL, device="cuda", seed=SEED + 44))
+    enc = {k: m.to(bf).eval() for k, m in enc.items()}
+    vae = AutoencoderKL(SD3_VAE, device="cuda", seed=SEED + 45).to(bf).eval()
+    return mm32, mm16, enc, vae
+
+
+@contextlib.contextmanager
+def first_attention_inputs(store):
+    """Within the block, the first ``ops.attention.mha`` call's q, k and v
+    (the model's own strided views) are kept in ``store``."""
+    from naturaldiffusion_tpu_torch.ops import attention as A
+    saved = A.mha
+
+    def keep(q, k, v, **kw):
+        if not store:
+            store.extend((q, k, v))
+        return saved(q, k, v, **kw)
+    A.mha = keep
+    try:
+        yield
+    finally:
+        A.mha = saved
+
+
+def sd3_k9_in_model(torch, qkv, timer):
+    """K9 on the first joint attention's own q, k, v (bf16 ``[2, 24, 4429,
+    64]`` strided views): against its plain version, then timed beside it,
+    SDPA's flash backend and the card's bound."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from naturaldiffusion_tpu_torch.ops import attention as A
+    q, k, v = qkv
+    b, h, t, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    err = check_close("K9 in the SD3 model", A.flash_attention(q, k, v,
+                                                               scale),
+                      A.mha_reference(q, k, v, scale), BF16_TOL)
+
+    def sdpa():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v, scale=scale)
+    flops, nbytes, bound, bound_by = attn_cost(b, h, t, d, 2)
+    row = dict(shape=[b, h, t, d], strides=list(q.stride()),
+               max_abs_err=err[0], max_rel_err=err[1],
+               ms=timer(lambda: A.flash_attention(q, k, v, scale)),
+               plain_ms=timer(lambda: A.mha_reference(q, k, v, scale)),
+               library_ms=timer(sdpa), bound_ms=bound, bound_by=bound_by)
+    row["tflops"] = flops / row["ms"] / 1e9
+    return row
+
+
+def sd3_k7_in_model(torch, model, run, timer):
+    """K7 at SD3-medium's latent-stream product shapes (``SD3_K7_LAYERS``)
+    on the first block's own int8 weights: ``run()`` (one forward of
+    ``model`` under w8) gives each layer its activations, and its bf16 output is held against the plain
+    version at BF16_TOL; the same activations in f32 go through K7 against
+    the plain version at F32_TOL.  Returns a row per shape, timed in bf16
+    beside the plain version, cuBLAS on the dequantized weight and the
+    card's bound."""
+    from naturaldiffusion_tpu_torch.ops import qmatmul as Q
+    block = model.blocks[0]
+    seen = {}
+
+    def keep(name):
+        def hook(mod, args, out):
+            if name not in seen:
+                seen[name] = (args[0].detach().clone(), out.detach().clone())
+        return hook
+    hooks = [getattr(block, n).register_forward_hook(keep(n))
+             for n in SD3_K7_LAYERS]
+    try:
+        with torch.no_grad():
+            before = Q.matmul_wdq.launches
+            run()
+            ran = Q.matmul_wdq.launches - before
+    finally:
+        for h in hooks:
+            h.remove()
+    rows = {}
+    for name in SD3_K7_LAYERS:
+        layer = getattr(block, name)
+        x, got = seen[name]
+        w_i8, s_w, b32 = layer._quantized(x.dtype)
+        kk, n = w_i8.shape
+        m = x.numel() // kk
+        key = f"M{m}_K{kk}_N{n}"
+        err16 = check_close(f"K7 in the SD3 model {key} bf16", got,
+                            Q.matmul_wdq_reference(x, w_i8, s_w, b32),
+                            BF16_TOL)
+        x32 = x.float()
+        err32 = check_close(
+            f"K7 in the SD3 model {key} f32",
+            Q.matmul_wdq(x32, w_i8, s_w, b32, layer._packed),
+            Q.matmul_wdq_reference(x32, w_i8, s_w, b32), F32_TOL)
+        w_dq = (w_i8.float() * s_w).to(x.dtype)
+        flops = 2.0 * m * kk * n
+        nbytes = 2 * m * kk + kk * n + 4 * n + 4 * n + 2 * m * n
+        rows[key] = dict(
+            layer=name, splits=Q._qm_plan(m, kk, n)["splits"],
+            max_abs_err_bf16=err16[0], max_rel_err_bf16=err16[1],
+            max_abs_err_f32=err32[0], max_rel_err_f32=err32[1],
+            ms=timer(lambda: Q.matmul_wdq(x, w_i8, s_w, b32, layer._packed)),
+            plain_ms=timer(lambda: Q.matmul_wdq_reference(x, w_i8, s_w,
+                                                          b32)),
+            library_ms=timer(lambda: torch.matmul(x, w_dq)),
+            bound_ms=max(flops / PEAK_FLOPS["torch.bfloat16"],
+                         nbytes / HBM_BYTES_PER_S) * 1e3)
+    # the forward ran every latent-stream QDense on K7, 6 a block
+    if ran != 6 * model.config.depth:
+        raise AssertionError(f"sd3 w8 check: {ran} K7 launches in one "
+                             f"forward, not {6 * model.config.depth}")
+    return rows
+
+
+def sd3_cfg_forward(model, t_all, ctx2, pool2):
+    """``(fwd, step)``: the CFG predictor of ``mmdit_cfg_fwd_mods`` and its
+    one step's hoisted conditioning at the single time ``t_all``."""
+    from naturaldiffusion_tpu_torch.models.mmdit import mmdit_cfg_fwd_mods
+    fwd, aux = mmdit_cfg_fwd_mods(model, ctx2=ctx2, pool2=pool2, t_all=t_all)
+    return fwd, {"blocks": tuple((a[0], c[0]) for a, c in aux["blocks"]),
+                 "out": aux["out"][0]}
+
+
+def sd3_ids(torch, gen, b):
+    """Random token ids of one prompt: CLIP rows of 77 (bos ... eos, the
+    eos the highest id, as the real vocabulary's 49407), T5 rows of 256."""
+    def rows(n, vocab):
+        return torch.randint(1, vocab, (b, n), generator=gen, device="cuda")
+    ids_l = rows(SD3_CLIP_LEN, 49406)
+    ids_l[:, 0], ids_l[:, -1] = 49406, 49407
+    return ids_l, ids_l.clone(), rows(SD3_T5_LEN, 32100)
+
+
+def phase_sd3(smi, details):
+    """The SD3 path through ``SD3Pipeline`` at SD3-medium's full width,
+    1024^2, bf16: (1) random ids through ``encode_prompt`` with CLIP-L,
+    CLIP-G and T5-XXL (t = 4096 + 333); (2) K9 on the model's own q, k, v
+    against its plain version, timed; one forward and a 3-step NI through
+    the kernels against the f32 plain versions on the card, beside the
+    bf16 plain control and a 1 %-off time control; the 3-step latents
+    decoded; (3) one image, warm: ``encode_prompt`` and ``__call__`` over
+    the 28-step Euler matrix with the VAE decode at 1024^2, its K1, K9 and
+    K7 launches counted, wall and sec/image, and one CFG forward profiled
+    (busy share, K9's share); (4) the MMDiT under w8: K7 held against its
+    plain version at each latent-stream shape on the model's own weights
+    and activations, then 3 steps.  Returns the launches of the 28-step
+    run, of the w8 run, K9's row and K7's rows."""
+    import torch
+    from naturaldiffusion_tpu_torch.models import mmdit as MM
+    from naturaldiffusion_tpu_torch.pipeline import SD3Pipeline
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mm32, mm16, enc, vae = sd3_models(torch)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    pipe = SD3Pipeline(mmdit=mm16, vae=vae, **enc)
+    cfg = mm16.config
+    hw = cfg.sample_size
+    t_ctx = SD3_CLIP_LEN + SD3_T5_LEN
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 46)
+    ids = (sd3_ids(torch, gen, 1), sd3_ids(torch, gen, 1))
+    noise = torch.randn((1, hw, hw, cfg.in_channels), generator=gen,
+                        device="cuda")
+    counters = sd3_counters()
+
+    def encode():
+        """The prompt's and the negative prompt's conditioning."""
+        (ctx, pooled), (nctx, npooled) = (pipe.encode_prompt(*i)
+                                          for i in ids)
+        return dict(context=ctx, pooled=pooled, neg_context=nctx,
+                    neg_pooled=npooled)
+
+    # (1) encode_prompt, with T5
+    cond = encode()
+    for a, shape in ((cond["context"], (1, t_ctx, cfg.joint_attention_dim)),
+                     (cond["pooled"], (1, cfg.pooled_projection_dim))):
+        if tuple(a.shape) != shape or not torch.isfinite(a).all():
+            raise AssertionError(f"sd3 encode_prompt: {tuple(a.shape)} != "
+                                 f"{shape} or non-finite")
+    ctx2 = torch.cat([cond["context"], cond["neg_context"]])
+    pool2 = torch.cat([cond["pooled"], cond["neg_pooled"]])
+
+    # (2) K9 on the model's own q, k, v; one CFG forward at t = 500 on the
+    # noise, f32 and bf16, against the f32 plain versions
+    t_all = torch.tensor([500.0], device="cuda")
+    fwd, step = sd3_cfg_forward(mm16, t_all, ctx2, pool2)
+    fwd32, step32 = sd3_cfg_forward(mm32, t_all, ctx2.float(),
+                                    pool2.float())
+    fwd_off, step_off = sd3_cfg_forward(mm16, t_all * 1.01, ctx2, pool2)
+    z16, z32 = noise.to(torch.bfloat16), noise
+    timer = Timer(torch, reps=5)
+    qkv = []
+    with torch.no_grad():
+        with first_attention_inputs(qkv):
+            got16 = fwd(z16, t_all[0], step)
+        k9 = sd3_k9_in_model(torch, qkv, timer)
+        del qkv
+        got32 = fwd32(z32, t_all[0], step32)
+        fault = fwd_off(z16, t_all[0] * 1.01, step_off)
+        with plain_versions():
+            want32 = fwd32(z32, t_all[0], step32)
+            plain16 = fwd(z16, t_all[0], step)
+    fwd_check = dict(
+        f32_rel_l2=rel_l2(got32, want32), f32_tol=SD3_FORWARD_TOL,
+        bf16_rel_l2=rel_l2(got16, want32),
+        control_plain_bf16_rel_l2=rel_l2(plain16, want32),
+        control_time_1pct_off_rel_l2=rel_l2(fault, want32))
+    fwd_check["bf16_limit"] = SD3_CONTROL_FACTOR * fwd_check[
+        "control_plain_bf16_rel_l2"]
+    del got32, want32, plain16, fault, got16, fwd32, fwd_off
+
+    # the 3-step NI through the pipeline: kernels in bf16 against the f32
+    # plain versions, beside the plain bf16 run and the time 1 % off
+    pipe32 = SD3Pipeline(mmdit=mm32)
+    cond32 = {k: v.float() for k, v in cond.items()}
+
+    def ni(p, c):
+        return p(noises=noise, num_steps=SD3_ACC_STEPS, decode=False, **c)
+    with plain_versions():
+        want = ni(pipe32, cond32)
+        ctl_plain = rel_l2(ni(pipe, cond), want)
+    lat3 = ni(pipe, cond)
+    err_ni = rel_l2(lat3, want)
+    saved = MM.mmdit_schedule_mods
+    MM.mmdit_schedule_mods = lambda m, t, p, c, dtype=None: saved(
+        m, t * 1.01, p, c, dtype)
+    try:
+        ctl_fault = rel_l2(ni(pipe, cond), want)
+    finally:
+        MM.mmdit_schedule_mods = saved
+    ni_check = dict(steps=SD3_ACC_STEPS, bf16_rel_l2=err_ni,
+                    control_plain_bf16_rel_l2=ctl_plain,
+                    control_time_1pct_off_rel_l2=ctl_fault,
+                    bf16_limit=SD3_CONTROL_FACTOR * ctl_plain)
+    with torch.no_grad():
+        img3 = vae.decode(vae.unscale_latents(lat3))
+    if not torch.isfinite(img3).all():
+        raise AssertionError("sd3: the 3-step image is not finite")
+    del pipe32, mm32, img3, lat3
+
+    # (3) one image, warm: encode, 28 steps, decode; counted and timed
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    tw = time.perf_counter()
+    cond = encode()
+    torch.cuda.synchronize()
+    t_encode = time.perf_counter() - tw
+    tw = time.perf_counter()
+    lat = pipe(noises=noise, num_steps=SD3_STEPS, decode=False, **cond)
+    torch.cuda.synchronize()
+    t_sample = time.perf_counter() - tw
+    tw = time.perf_counter()
+    with torch.no_grad():
+        img = vae.decode(vae.unscale_latents(lat))
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - tw
+    launches = read_counts(counters)
+    expect = {"fused_weighted_sum": SD3_STEPS,
+              "flash_attention": SD3_STEPS * cfg.depth, "matmul_wdq": 0}
+    if launches != expect:
+        raise AssertionError(f"sd3: launches {launches} != {expect}")
+    if tuple(img.shape) != (1, 8 * hw, 8 * hw, 3) or not (
+            torch.isfinite(img).all() and torch.isfinite(lat).all()):
+        raise AssertionError(f"sd3: image {tuple(img.shape)} non-finite or "
+                             f"misshapen")
+    wall = t_encode + t_sample + t_decode
+
+    # the CFG forward of (2) profiled SD3_PROFILED times over
+    with torch.no_grad():
+        wall_ms, kern = device_profile(torch, lambda: [
+            fwd(z16, t_all[0], step) for _ in range(SD3_PROFILED)])
+    dev_ms = sum(ms for _, ms in kern.values()) / SD3_PROFILED
+    k9_ms = sum(ms for name, (_, ms) in kern.items()
+                if "flash_ring_kernel" in name) / SD3_PROFILED
+    fwd_wall_ms = t_sample / SD3_STEPS * 1e3
+    prof = dict(device_ms_per_fwd=dev_ms, wall_ms_per_fwd=fwd_wall_ms,
+                busy_share=dev_ms / fwd_wall_ms, k9_ms_per_fwd=k9_ms,
+                k9_share_of_fwd=k9_ms / dev_ms if dev_ms else None,
+                profiled_wall_ms=wall_ms / SD3_PROFILED,
+                top=top_kernels(kern))
+
+    # (4) w8: every latent-stream QDense on K7 (the context stream's 666
+    # rows fail qmatmul_ok, as in JAX); the warm-up forward quantizes the
+    # weights and gives K7's check at each latent-stream shape its inputs
+    mm16.set_quant("w8")
+    k7 = sd3_k7_in_model(torch, mm16, lambda: fwd(z16, t_all[0], step),
+                         timer)
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    tw = time.perf_counter()
+    lat_w8 = ni(pipe, cond)
+    torch.cuda.synchronize()
+    t_w8 = time.perf_counter() - tw
+    launches_w8 = read_counts(counters)
+    mm16.set_quant(None)
+    expect_w8 = {"fused_weighted_sum": SD3_ACC_STEPS,
+                 "flash_attention": SD3_ACC_STEPS * cfg.depth,
+                 "matmul_wdq": SD3_ACC_STEPS * 6 * cfg.depth}
+    if launches_w8 != expect_w8 or not torch.isfinite(lat_w8).all():
+        raise AssertionError(f"sd3 w8: launches {launches_w8} != "
+                             f"{expect_w8} or non-finite")
+    w8 = dict(steps=SD3_ACC_STEPS, wall_s=t_w8, launches=launches_w8,
+              reading_rel_l2_vs_f32_plain=rel_l2(lat_w8, want),
+              k7_in_model=k7)
+
+    details["sd3"] = dict(profile=prof, k9_in_model=k9, forward=fwd_check,
+                          ni=ni_check, w8=w8)
+    bad = []
+    if not fwd_check["f32_rel_l2"] <= SD3_FORWARD_TOL:
+        bad.append("f32 forward")
+    for what, r in (("bf16 forward", fwd_check), ("bf16 NI", ni_check)):
+        if not (r["bf16_rel_l2"] <= r["bf16_limit"]
+                < r["control_time_1pct_off_rel_l2"]):
+            bad.append(what)
+    phase("sd3", t0, card=smi, steps=SD3_STEPS, latent=hw, image=8 * hw,
+          context_tokens=t_ctx, wall_s=wall, sec_per_image=wall,
+          seconds=dict(build=t_build, encode=t_encode, sample=t_sample,
+                       decode=t_decode),
+          cfg_forward_ms=fwd_wall_ms, launches=launches, profile=prof,
+          k9_in_model={f: k9[f] for f in ("shape", "ms", "plain_ms",
+                                          "library_ms", "bound_ms",
+                                          "max_abs_err", "tflops")},
+          forward=fwd_check, ni=ni_check, w8=w8,
+          control_factor=SD3_CONTROL_FACTOR,
+          params=dict(mmdit=sum(p.numel() for p in mm16.parameters()),
+                      **{k: sum(p.numel() for p in m.parameters())
+                         for k, m in dict(enc, vae=vae).items()}),
+          peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if bad:
+        raise AssertionError(f"sd3: {bad} outside their limits: "
+                             f"{fwd_check} {ni_check}")
+    del pipe, mm16, enc, vae, lat, img, lat_w8
+    torch.cuda.empty_cache()
+    return launches, launches_w8, k9, k7
+
+
 # ------------------------------------------------------------ tooling path
 
 def check_abs(what, got, want, atol):
@@ -3717,8 +4117,9 @@ def attn_cost(b, h, t, d, itemsize):
 
 def phase_tool_kernels(details, child):
     """K10 and ``mha_joint`` at SD3's lengths, K8 at the level-0
-    activations, K9 at SD3's length: checked, then timed in bf16.  Returns
-    the kernels' rows and K8's path counts."""
+    activations: checked, then timed in bf16, and K9 and K10 timed at each
+    of SD3's joint lengths.  Returns the kernels' rows, K8's path counts
+    and the times by length."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -3815,7 +4216,8 @@ def phase_tool_kernels(details, child):
           f"kernels, {jt['in_process_profile']['device_ms']:.3f} ms, K10 "
           f"{jt['in_process_profile']['k10_ms']:.3f} ms", flush=True)
 
-    # K10 and K9 timed at SD3's length in bf16 (q, k, v from above)
+    # K10 timed at SD3's length in bf16 (q, k, v from above); K9 is checked
+    # and timed at SD3's length on the model's own q, k, v (phase sd3)
     qs = A.prescale(q, scale)
     flops, nbytes, bound, bound_by = attn_cost(b, h, t_sd3, d, 2)
     k10_time = dict(
@@ -3824,16 +4226,7 @@ def phase_tool_kernels(details, child):
         plain_ms=timer(lambda: A.splash_reference(qs, k, v)),
         library_ms=timer(lambda: sdpa(qs, k, v, 1.0)),
         bound_ms=bound, bound_by=bound_by, flops=flops, bytes=nbytes)
-    k9_long = dict(
-        ms=timer(lambda: A.flash_attention(q, k, v, scale)),
-        plain_ms=timer(lambda: A.mha_reference(q, k, v, scale)),
-        library_ms=timer(lambda: sdpa(q, k, v, scale)),
-        bound_ms=bound, bound_by=bound_by,
-        shape=[b, h, t_sd3, d],
-        err=check_close("K9 at SD3's length", A.flash_attention(
-            q, k, v, scale), A.mha_reference(q, k, v, scale), BF16_TOL)[0])
-    for r in (k10_time, k9_long):
-        r["tflops"] = flops / r["ms"] / 1e9
+    k10_time["tflops"] = flops / k10_time["ms"] / 1e9
     del q, k, v, qs, got
     # K9 and K10 (with and without the logsumexp) at each of SD3's joint
     # lengths beside SDPA's flash backend, bf16
@@ -3900,7 +4293,6 @@ def phase_tool_kernels(details, child):
 
     details["tool_kernels"] = dict(splash=k10, splash_time=k10_time,
                                    mha_joint=joint, fused_act=k8,
-                                   flash_sd3=k9_long,
                                    attention_by_length=by_length)
     out = [
         dict(name="splash_attention", route="cuda",
@@ -3930,12 +4322,11 @@ def phase_tool_kernels(details, child):
                   f"({r['gb_per_s']:.0f} GB/s, {100 * r['bound_share']:.1f}% "
                   f"of bound), plain {r['plain_ms']:.4f}, bound "
                   f"{r['bound_ms']:.4f}", flush=True)
-    for name, r in (("splash_attention", k10_time),
-                    ("flash_attention", k9_long)):
-        print(f"  {name} [{b}, {h}, {t_sd3}, {d}] bf16: {r['ms']:.4f} ms "
-              f"({r['tflops']:.1f} TFLOP/s), plain {r['plain_ms']:.4f}, "
-              f"SDPA flash {r['library_ms']:.4f}, bound {r['bound_ms']:.4f}",
-              flush=True)
+    r = k10_time
+    print(f"  splash_attention [{b}, {h}, {t_sd3}, {d}] bf16: {r['ms']:.4f} "
+          f"ms ({r['tflops']:.1f} TFLOP/s), plain {r['plain_ms']:.4f}, SDPA "
+          f"flash {r['library_ms']:.4f}, bound {r['bound_ms']:.4f}",
+          flush=True)
     phase("tool_kernels", t0,
           checks={"splash_attention": len(k10), "mha_joint": 2,
                   "fused_leaky_relu": len(k8)},
@@ -3946,13 +4337,11 @@ def phase_tool_kernels(details, child):
           splash_attention_per_launch={f: k10_time[f] for f in (
               "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
               "tflops")},
-          flash_attention_sd3={f: k9_long[f] for f in (
-              "ms", "plain_ms", "library_ms", "bound_ms", "tflops")},
           attention_by_length={t: {f: round(v, 5) for f, v in r.items()
                                    if f.endswith("_ms")}
                                for t, r in by_length.items()},
           fused_act_path_launches=k8_count)
-    return out, k8_count, k9_long
+    return out, k8_count, by_length
 
 
 # One mha_joint call at SD3's length in bf16, profiled, its device time by
@@ -4065,9 +4454,45 @@ def phase_attention_bench():
     return counts, rows
 
 
-def phase_tool_trace():
-    """``bench_dit --toy --trace --count-flops`` on the card and the trace
-    summary of its trace; ``bench_conv --shapes 1``."""
+# the FLOP count that ``bench_dit --toy --count-flops`` (tool_trace) asks
+# of a CPU subprocess, started beside the build: (module, its argv)
+TOOL_TRACE_COUNT = ("naturaldiffusion_tpu_torch.apps.bench_dit",
+                    ("--model", "DiT-XL/2", "--batch", "1", "--cfg-scale",
+                     "4.0", "--toy"))
+
+
+@contextlib.contextmanager
+def count_started_early(module, key, early):
+    """Within the block, ``module.flops_via_cpu_subprocess`` answers the
+    call ``key`` (module, argv) with the result of ``early``, the future of
+    the same call started earlier; any other call runs as before."""
+    saved = module.flops_via_cpu_subprocess
+
+    def answer(mod, argv):
+        if (mod, tuple(argv)) == key:
+            return early.result()
+        return saved(mod, argv)
+    module.flops_via_cpu_subprocess = answer
+    try:
+        yield
+    finally:
+        module.flops_via_cpu_subprocess = saved
+
+
+def warm_profiler(torch):
+    """One short ``torch.profiler`` session on the card: a process's first
+    session sets the profiler up, seconds of host time (~9 s on the H100's
+    host) that the slice phase's profile would otherwise pay."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(1024, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]):
+        (x * 2).sum().item()
+
+
+def phase_tool_trace(dit_count):
+    """``bench_dit --toy --trace --count-flops`` on the card (its CPU count
+    ``dit_count``, the future of ``TOOL_TRACE_COUNT`` started beside the
+    build) and the trace summary of its trace; ``bench_conv --shapes 1``."""
     import contextlib as cl
     import io
     import shutil
@@ -4079,7 +4504,8 @@ def phase_tool_trace():
     logdir = tempfile.mkdtemp(prefix="natdiff_trace_")
     try:
         buf = io.StringIO()
-        with cl.redirect_stdout(buf):
+        with cl.redirect_stdout(buf), count_started_early(
+                bench_dit, TOOL_TRACE_COUNT, dit_count):
             rc = bench_dit.main(["--toy", "--steps", "10", "--trace",
                                  logdir, "--count-flops"])
         dit = json.loads(buf.getvalue().splitlines()[-1])
@@ -4137,13 +4563,19 @@ def main(argv=None) -> int:
         CIFAR10_DDPMPP_CONTINUOUS, NCSNpp)
 
     smi = phase_env()
-    # the port bench's FLOPs, counted on the CPU while the kernels build
+    # the port bench's FLOPs and tool_trace's count, on the CPU, and the
+    # profiler's first session (seconds of set-up), while the kernels build
     from naturaldiffusion_tpu_torch.utils.flops import flops_via_cpu_subprocess
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        counting = pool.submit(flops_via_cpu_subprocess,
-                               "naturaldiffusion_tpu_torch.apps.bench", [])
-        phase_build()
-        bench_flops = int(counting.result())
+    pool = concurrent.futures.ThreadPoolExecutor(3)
+    counting = pool.submit(flops_via_cpu_subprocess,
+                           "naturaldiffusion_tpu_torch.apps.bench", [])
+    dit_count = pool.submit(flops_via_cpu_subprocess, TOOL_TRACE_COUNT[0],
+                            list(TOOL_TRACE_COUNT[1]))
+    building = pool.submit(phase_build)
+    warm_profiler(torch)
+    building.result()
+    bench_flops = int(counting.result())
+    pool.shutdown(wait=False)
     # tool_kernels' profiling child, started now and stopped at exit
     child = start_joint_profile()
     atexit.register(stop_process, child)
@@ -4184,16 +4616,30 @@ def main(argv=None) -> int:
     ve_launches = phase_ve_slice(ve_cfg, ve32, ve_sigs, smi)
     del ve32
     backbone_launches = phase_backbones(smi, details)
+    sd3_launches, sd3_w8_launches, k9_sd3, k7_sd3 = phase_sd3(smi,
+                                                               details)
 
-    tool_kernels, k8_launches, k9_long = phase_tool_kernels(details, child)
+    tool_kernels, k8_launches, by_length = phase_tool_kernels(details, child)
     kernels += tool_kernels
     attn_launches, attn_rows = phase_attention_bench()
-    dit_toy, conv_row = phase_tool_trace()
+    dit_toy, conv_row = phase_tool_trace(dit_count)
     conv_model = phase_conv_model()
     for k in kernels:
         if k["name"] == "flash_attention":
-            k["sd3_length"] = {f: k9_long[f] for f in (
-                "shape", "ms", "plain_ms", "library_ms", "bound_ms")}
+            # K9 at SD3-medium's joint attention: on the model's own q, k,
+            # v (phase sd3), and standalone beside SDPA (tool_kernels)
+            k["sd3_length"] = dict(
+                {f: k9_sd3[f] for f in ("shape", "ms", "plain_ms",
+                                        "library_ms", "bound_ms")},
+                standalone_ms=by_length[SD3_LAT + 333]["flash_ms"])
+        if k["name"] == "qmatmul":
+            # K7 at SD3-medium's latent-stream shapes (phase sd3)
+            k["sd3_shapes"] = {key: {f: r[f] for f in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err_bf16",
+                "max_abs_err_f32")} for key, r in k7_sd3.items()}
+            k["max_abs_err"] = max([k["max_abs_err"]] + [
+                r[f] for r in k7_sd3.values()
+                for f in ("max_abs_err_bf16", "max_abs_err_f32")])
 
     by_path = {"cifar_slice": launches,
                "bench": bench_launches,
@@ -4202,12 +4648,15 @@ def main(argv=None) -> int:
                "dit_slice_w8": dit_runs["w8"]["launches"],
                "ve_slice": ve_launches,
                "backbones": backbone_launches,
+               "sd3_slice": sd3_launches,
+               "sd3_slice_w8": sd3_w8_launches,
                "samplers": sampler_launches,
                "eval": eval_launches,
                "attention_bench": attn_launches,
                "fused_act": k8_launches}
     # each kernel's count from the path that exercises it: K1-K3 the
-    # CIFAR slice, K9 the DiT slice, K7 the DiT slice under w8, K4 (serving
+    # CIFAR slice, K9 the DiT slice, K7 the DiT slice under w8 (each also
+    # on the SD3 slice, launches_by_path), K4 (serving
     # K5) and K6 the VE slice, K10 the attention bench, K8 its own path, the
     # int8 conv the bench in its default form (bench.py's, unfused int8)
     main_path = {"weighted_sum": ("cifar_slice", "fused_weighted_sum"),

@@ -8,18 +8,19 @@ same seed and CFG wrapper, and reports ``max|original - NI|`` against
 there is no difference" check (``:375-391``), made numerical.  Runs on the
 card by default, in float32, with the weights of ``--ckpt`` (the release
 ``DiT-XL-2-256x256.pt`` layout) or random ones (the zero adaLN-Zero layers
-perturbed so the network carries signal).
+perturbed so the network carries signal).  ``--vae`` (SD VAE torch
+weights) decodes the first ``--batch`` latents of both trajectories, as
+the reference does (``:368``: ``z / 0.18215``), to
+``{outdir}/{alg}_{steps}__seed_{s}__{original,natural}.png``.
 
     python -m naturaldiffusion_tpu_torch.apps.validate_dit --steps 10
-
-``--vae`` (decoding the two trajectories to images) waits for the VAE
-(ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 
 import torch
@@ -61,7 +62,9 @@ def build_model(cfg: DiTConfig, device="cuda", seed: int = 0,
 @torch.no_grad()
 def validate(model: DiT, *, alg: str = "ddim", steps: int = 24,
              cfg_scale: float = 4.0, batch: int = 2, seed: int = 0):
-    """``(max|direct - NI|, max|NI|)`` for ``steps`` steps of ``alg``."""
+    """``(max|direct - NI|, max|NI|, direct, ni)`` for ``steps`` steps of
+    ``alg``: the two final latents ``[2 * batch, H, W, C]`` (the CFG
+    pair)."""
     cfg = model.config
     dev = model.pos_embed.device
     n, b, cin = steps, batch, cfg.in_channels
@@ -106,7 +109,26 @@ def validate(model: DiT, *, alg: str = "ddim", steps: int = 24,
     ni = natural_inference(eps_fn, sched, init,
                            noises=None if alg == "ddim" else noises,
                            prediction_type="eps")
-    return float((direct - ni).abs().max()), float(ni.abs().max())
+    return (float((direct - ni).abs().max()), float(ni.abs().max()), direct,
+            ni)
+
+
+@torch.no_grad()
+def decode_latents(vae, latents, batch: int):
+    """The first ``batch`` latents through the VAE, unscaled first
+    (``z / scaling_factor``): ``[batch, 8H, 8W, 3]`` images in [-1, 1]."""
+    return vae.decode(vae.unscale_latents(latents[:batch]))
+
+
+def load_vae(path: str, device):
+    """The SD VAE (DiT's, ``models.vae.SD_VAE``) with the torch weights of
+    ``path`` (the HF ``vae`` layout)."""
+    from ..models.convert import fill_from_torch, load_torch_checkpoint
+    from ..models.vae import SD_VAE, AutoencoderKL, vae_torch_path_map
+    vae = AutoencoderKL(SD_VAE, device=device)
+    fill_from_torch(vae, load_torch_checkpoint(path),
+                    path_map=vae_torch_path_map)
+    return vae
 
 
 def main(argv=None) -> int:
@@ -115,6 +137,10 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=24)
     p.add_argument("--model", default="DiT-XL/2")
     p.add_argument("--ckpt", default=None, help="DiT-XL-2-256x256.pt")
+    p.add_argument("--vae", default=None,
+                   help="SD VAE torch weights: decode both trajectories")
+    p.add_argument("--outdir", default="results_torch/validation",
+                   help="where --vae writes its images")
     p.add_argument("--small", action="store_true",
                    help="tiny random DiT (smoke mode)")
     p.add_argument("--cfg-scale", type=float, default=4.0)
@@ -127,13 +153,22 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     cfg = SMALL if args.small else DIT_CONFIGS[args.model]
     model = build_model(cfg, device=dev, ckpt=args.ckpt)
-    diff, scale = validate(model, alg=args.alg, steps=args.steps,
-                           cfg_scale=args.cfg_scale, batch=args.batch,
-                           seed=args.seed)
+    diff, scale, direct, ni = validate(
+        model, alg=args.alg, steps=args.steps, cfg_scale=args.cfg_scale,
+        batch=args.batch, seed=args.seed)
     ok = diff < args.tol * max(scale, 1.0)
     print(f"[{'OK ' if ok else 'FAIL'}] DiT {args.alg} steps={args.steps} "
           f"cfg={args.cfg_scale} max|original - NI| = {diff:.3e} "
           f"(latent scale {scale:.2f})", flush=True)
+    if args.vae:
+        from ..utils.plotting import save_image_grid
+        vae = load_vae(args.vae, dev)
+        for name, lat in (("original", direct), ("natural", ni)):
+            path = os.path.join(args.outdir, f"{args.alg}_{args.steps:03d}__"
+                                f"seed_{args.seed}__{name}.png")
+            save_image_grid(decode_latents(vae, lat, args.batch), path,
+                            nrow=args.batch)
+            print(f"decoded -> {path}", flush=True)
     return 0 if ok else 1
 
 

@@ -6,8 +6,10 @@ config)`` builds a model by its family name, the ``model_family`` of a
 
 from .ddpm import DDPM, DDPMConfig
 from .dit import DIT_CONFIGS, DiT, DiTConfig
+from .mmdit import SD3_MEDIUM, MMDiT, MMDiTConfig
 from .ncsnpp import NCSNpp, NCSNppConfig
 from .ncsnv2 import NCSN, NCSNv2, NCSNv2_128, NCSNv2_256, NCSNv2Config
+from .vae import SD3_VAE, SD_VAE, AutoencoderKL, VAEConfig
 
 _MODELS = {
     "ncsnpp": (NCSNpp, NCSNppConfig),
@@ -17,10 +19,9 @@ _MODELS = {
     "ncsnv2_256": (NCSNv2_256, NCSNv2Config),
     "ncsn": (NCSN, NCSNv2Config),
     "dit": (DiT, DiTConfig),
+    "mmdit": (MMDiT, MMDiTConfig),
+    "vae": (AutoencoderKL, VAEConfig),
 }
-# families of the JAX registry that wait for their slice
-_UNPORTED = {"mmdit": "SD3 (ROADMAP section A, entry 10)",
-             "vae": "SD3 (ROADMAP section A, entry 10)"}
 
 
 def register_model(name: str):
@@ -33,9 +34,6 @@ def register_model(name: str):
 
 def get_model(name: str):
     """The ``(model class, config class)`` pair of a family."""
-    if name in _UNPORTED:
-        raise KeyError(f"{name!r} is not ported yet: it comes with the "
-                       f"slice {_UNPORTED[name]}")
     return _MODELS[name]
 
 
@@ -49,6 +47,8 @@ def create_model(name: str, config=None, *, device="cuda", seed: int = 0,
     return cls(cfg, device=device, seed=seed)
 
 
-__all__ = ["DDPM", "DDPMConfig", "DIT_CONFIGS", "DiT", "DiTConfig", "NCSN",
-           "NCSNpp", "NCSNppConfig", "NCSNv2", "NCSNv2Config", "NCSNv2_128",
-           "NCSNv2_256", "create_model", "get_model", "register_model"]
+__all__ = ["AutoencoderKL", "DDPM", "DDPMConfig", "DIT_CONFIGS", "DiT",
+           "DiTConfig", "MMDiT", "MMDiTConfig", "NCSN", "NCSNpp",
+           "NCSNppConfig", "NCSNv2", "NCSNv2Config", "NCSNv2_128",
+           "NCSNv2_256", "SD3_MEDIUM", "SD3_VAE", "SD_VAE", "VAEConfig",
+           "create_model", "get_model", "register_model"]

@@ -32,8 +32,9 @@ def _flatten(tree, prefix, out):
 
 def load_jax_params(model, params, dtype: torch.dtype | None = None):
     """Fill ``model`` (the port's ``NCSNpp``, ``DDPM``, ``NCSNv2``,
-    ``NCSNv2_128``, ``NCSNv2_256``, ``NCSN`` or ``DiT``) from a flax param
-    tree.
+    ``NCSNv2_128``, ``NCSNv2_256``, ``NCSN``, ``DiT``, ``MMDiT``,
+    ``AutoencoderKL``, ``CLIPTextEncoder`` or ``T5Encoder``) from a flax
+    param tree.
 
     ``params``: the ``["params"]`` tree of the JAX package's model as
     nested dicts of numpy arrays: NCSN++'s ``{"m0": {"kernel", "bias"},
@@ -46,10 +47,10 @@ def load_jax_params(model, params, dtype: torch.dtype | None = None):
     ...}`` (NCSN's norms ``{"embed": {"embedding"}}``), or DiT's
     ``{"x_embedder_proj": {"kernel" [p,p,C,D] HWIO, "bias"},
     "y_embedder_embedding_table": {"embedding"}, "blocks_0": {"attn":
-    {"qkv": ...}, ...}, ...}`` (the last two matched against the model
-    itself; DiT's LayerNorms have no params).  Names and layouts are the
-    same on both
-    sides, so each leaf is copied as it is.  With ``dtype`` the model is cast
+    {"qkv": ...}, ...}, ...}`` (the last two, and the SD3 models' trees,
+    matched against the model itself; the LayerNorms of DiT and MMDiT have
+    no params).  Names and layouts are the same on both sides, so each
+    leaf is copied as it is.  With ``dtype`` the model is cast
     first (e.g. ``torch.bfloat16``).  Raises on a missing, extra or
     mis-shaped leaf.  Returns the model."""
     flat: dict[str, object] = {}
@@ -187,13 +188,17 @@ def ncsnpp_torch_path_map(path: tuple[str, ...]) -> str:
 def fill_from_torch(model, state_dict: Mapping[str, object], path_map=None,
                     root: str = "") -> list[str]:
     """Fill ``model`` (the port's ``NCSNpp`` or ``DDPM``, their walks in
-    ``layers``, a RefineNet of ``models.ncsnv2``, or ``DiT``) in place from
-    a torch state dict, e.g. from :func:`load_torch_checkpoint`.
+    ``layers``, a RefineNet of ``models.ncsnv2``, ``DiT``, or an SD3 model:
+    ``MMDiT``, ``AutoencoderKL``, ``CLIPTextEncoder``, ``T5Encoder``) in
+    place from a torch state dict, e.g. from :func:`load_torch_checkpoint`.
 
     Each parameter's module path goes through ``path_map`` (default
     :func:`ncsnpp_torch_path_map`; the others are ``models.ddpm.
-    ddpm_torch_path_map``, ``models.ncsnv2.ncsnv2_torch_path_map`` and
-    ``models.dit.dit_torch_path_map``) to a torch key under ``root``, with
+    ddpm_torch_path_map``, ``models.ncsnv2.ncsnv2_torch_path_map``,
+    ``models.dit.dit_torch_path_map``, ``models.mmdit.
+    mmdit_torch_path_map``, ``models.vae.vae_torch_path_map`` and
+    ``models.text_encoders.clip_torch_path_map`` / ``t5_torch_path_map``)
+    to a torch key under ``root``, with
     JAX's transposes (InstanceNorm++'s ``alpha``, ``gamma`` and ``beta``
     keep their names, an ``embedding`` is a torch ``weight``).  Raises ``KeyError`` on a missing key and ``ValueError`` on
     a wrong shape; nothing is written unless every parameter is found.

@@ -92,17 +92,22 @@ def _promote(x, p):
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: ``kernel [in, out]``, ``bias [out]``; the product
-    and the bias add run in the promoted type of input and weights."""
+    """flax ``nn.Dense``: ``kernel [in, out]``, ``bias [out]`` (none with
+    ``bias=False``, flax's ``use_bias=False``); the product and the bias add
+    run in the promoted type of input and weights."""
 
-    def __init__(self, fin: int, fout: int):
+    def __init__(self, fin: int, fout: int, bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(fin, fout))
-        self.bias = nn.Parameter(torch.empty(fout))
+        if bias:
+            self.bias = nn.Parameter(torch.empty(fout))
+        else:
+            self.register_parameter("bias", None)
 
     def forward(self, x):
         dt = _promote(x, self.kernel)
-        return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
+        y = x.to(dt) @ self.kernel.to(dt)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class QDense(Dense):

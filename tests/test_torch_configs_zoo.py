@@ -1,8 +1,8 @@
 """The port's config zoo and model registry against the JAX package's: all
 39 entries field by field with their family, ``create_model`` building each
-ported family at full width with JAX's parameter count, and the families
-that wait for their slice refused (the four NCSN++ entries the zoo gained
-run in ``test_torch_ncsnpp_zoo.py``)."""
+ported family at full width with JAX's parameter count, and every family
+of the JAX registry resolved, the SD3 ones too (the four NCSN++ entries the
+zoo gained run in ``test_torch_ncsnpp_zoo.py``)."""
 
 import dataclasses
 
@@ -92,6 +92,15 @@ def test_create_model_takes_config_fields():
 
 @pytest.mark.parametrize("family", ["mmdit", "vae"])
 def test_unported_families_are_refused(family):
+    """No family of the JAX registry is refused any more: the SD3 families
+    resolve to the port's models (built in ``tests/test_torch_mmdit.py`` and
+    ``tests/test_torch_vae.py``), and only a name neither registry knows
+    raises ``KeyError``."""
     assert family in jmodels._MODELS
-    with pytest.raises(KeyError, match="SD3"):
-        models.create_model(family)
+    assert set(models._MODELS) == set(jmodels._MODELS)
+    cls, cfg_cls = models.get_model(family)
+    jcls, jcfg_cls = jmodels.get_model(family)
+    assert (cls.__name__, cfg_cls.__name__) == (jcls.__name__,
+                                                jcfg_cls.__name__)
+    with pytest.raises(KeyError):
+        models.create_model(family + "_none")

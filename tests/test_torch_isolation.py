@@ -148,9 +148,40 @@ assert callable(quant_accuracy.run) and NativeBatchLoader.__len__
 for name in ("deis_tab", "dpmsolver3s", "flow_euler", "ode_heun"):
     m = registry.derive(name, 4)
     assert np.isfinite(m.x0).all() and np.isfinite(m.eps).all()
+from naturaldiffusion_tpu_torch import models as zoo
+from naturaldiffusion_tpu_torch.apps import bench_sd3, degradation, sd3_ni
+from naturaldiffusion_tpu_torch.models import text_encoders as te
+from naturaldiffusion_tpu_torch.pipeline import SD3Pipeline
+from naturaldiffusion_tpu_torch.text import (CLIPBPETokenizer,
+                                             SentencePieceUnigram,
+                                             sd3_tokenize_ids)
+from naturaldiffusion_tpu_torch.text.clip_bpe import basic_clean, pretokenize
+mm = zoo.create_model("mmdit", device="cpu", **vars(bench_sd3.toy_config(8)))
+vae = zoo.create_model("vae", device="cpu", base_channels=32, ch_mult=(1,),
+                       layers_per_block=1)
+clip = te.CLIPTextEncoder(te.CLIPTextConfig(vocab_size=9, hidden_size=16,
+                                            num_layers=1, num_heads=2,
+                                            intermediate_size=8,
+                                            max_positions=4,
+                                            projection_dim=16), device="cpu")
+t5 = te.T5Encoder(te.T5Config(vocab_size=9, d_model=32, d_kv=8, d_ff=8,
+                              num_layers=1, num_heads=2), device="cpu")
+pipe = SD3Pipeline(mmdit=mm, vae=vae, clip_l=clip, clip_g=clip, t5=t5)
+ctx, pooled = pipe.encode_prompt(np.ones((1, 4)), np.ones((1, 4)),
+                                 np.ones((1, 3)))
+assert ctx.shape == (1, 7, 32) and pooled.shape == (1, 32)
+img = pipe(noises=torch.randn(1, 8, 8, 4), context=ctx, pooled=pooled,
+           neg_context=ctx, neg_pooled=pooled, num_steps=2)
+assert img.shape == (1, 8, 8, 3) and torch.isfinite(img).all()
+assert pretokenize(basic_clean("It's a Café, 42!")) == [
+    "it", "'s", "a", "café", ",", "4", "2", "!"]
+assert callable(sd3_ni.main) and callable(degradation.posterior_stats)
+assert callable(CLIPBPETokenizer.from_files) and SentencePieceUnigram
+assert callable(sd3_tokenize_ids)
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "naturaldiffusion_tpu")
-             or k.startswith(("jax.", "jaxlib", "naturaldiffusion_tpu.")))
+             if k in ("jax", "naturaldiffusion_tpu", "regex", "pandas")
+             or k.startswith(("jax.", "jaxlib", "naturaldiffusion_tpu.",
+                              "regex.", "pandas.")))
 print("LEAKED", bad)
 """
 
@@ -169,6 +200,16 @@ def test_no_source_imports_jax_or_the_jax_package():
     files = list((ROOT / "naturaldiffusion_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "int8_ablation.py"]
     assert len(files) > 10
+    offenders = [str(f) for f in files if pat.search(f.read_text())]
+    assert not offenders
+
+
+def test_no_source_imports_regex_or_pandas():
+    """The card's machine has neither: the CLIP pretokenizer is written
+    with ``unicodedata`` and ``re``, the SD3 weight CSV read with ``csv``."""
+    pat = re.compile(r"^\s*(import|from)\s+(regex|pandas)(\.|\s|$)", re.M)
+    files = list((ROOT / "naturaldiffusion_tpu_torch").rglob("*.py"))
+    files += [ROOT / "chip_smoke.py"]
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders
 
@@ -294,3 +335,25 @@ def test_eval_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
         fid_stats.main(["--data", str(tmp_path / "none.bin")])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         quant_accuracy.main(["--batch", "1"])
+
+
+def test_sd3_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
+    """Every SD3 model at its default config (nothing is allocated before
+    the refusal), through ``create_model`` too, and the SD3 apps."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from naturaldiffusion_tpu_torch import models
+    from naturaldiffusion_tpu_torch.apps import (bench_sd3, degradation,
+                                                 sd3_ni, validate_dit)
+    from naturaldiffusion_tpu_torch.models import text_encoders as te
+    for make in (models.MMDiT, models.AutoencoderKL, te.CLIPTextEncoder,
+                 te.T5Encoder, lambda: models.create_model("mmdit"),
+                 lambda: models.create_model("vae")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    for main, argv in ((sd3_ni.main, ["--small", "--latent", "8"]),
+                       (bench_sd3.main, ["--toy", "--latent", "8"]),
+                       (degradation.main, ["--n", "4", "--dim", "2"]),
+                       (validate_dit.main, ["--small", "--vae",
+                                            str(tmp_path / "v.pth")])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
