@@ -58,7 +58,7 @@ printed as one line with its numbers and seconds as it ends:
            CPU at 32x32, 48x64 and 320x336 (the antialiased resize), pool
            features and logits, then timed at batch 256; (b)
            ``apps.fid_selfcheck.main`` over the full-width CIFAR model at
-           2,048 images and 256 features, its sampling one CUDA-graph
+           1,024 images and 256 features, its sampling one CUDA-graph
            replay a micro-batch: the app's pass rule, its CSV row, and the
            K1-K3 and K6 launches of the warm-up and capture; (c) PC
            inpainting and colorization (``samplers.controllable``) as the
@@ -68,6 +68,24 @@ printed as one line with its numbers and seconds as it ends:
            drive's launches; (d) ``apps.quant_accuracy`` at batch 16 in
            ``int8_static`` and ``int8`` under route 0: its report, a
            non-zero int8-against-bf16 gap, Q1's launches.
+  train    the score-SDE trainer over the full-width CIFAR model (VPSDE,
+           every weight random): (1) the backward of K2, K3 and K6 (their
+           autograd Functions) at every distinct signature of the model's
+           forward at 2 images, f32 and bf16, against autograd through the
+           plain versions with cuDNN off, every input's gradient (K3's
+           ``pre`` and skip, with cotangents on its channel sums); (2) one
+           f32 loss and gradient of the whole model, the kernels against
+           the plain versions with the same draws, beside a control (K3's
+           backward with the channel-sum cotangents dropped) that the limit
+           must catch, the launches of the forward and of the backward
+           (none); (3) 3 optimizer steps (Adam, warm-up, clip, EMA), the
+           kernels against the plain versions; (4) ``apps.train`` at batch
+           128 for 3 iterations on a ``toy_dataset`` binary in f32 and bf16,
+           each with snapshots (in f32 with EMA sample grids), in f32 a
+           resumed run against the uninterrupted one and the launches; (5)
+           ``apps.bench_train`` at batch 128, f32 and bf16, at conv switch
+           2 and 0: step ms, img/s, FLOPs, MFU, peak memory, and one
+           profiled step (busy share, top kernels).
   bench    the port bench, ``apps.bench``, on one ``Bench`` at its
            defaults (1024 images a dispatch in 16 replays of a CUDA graph
            of one 64-image 10-step run): the wrappers' launch counts around
@@ -170,7 +188,9 @@ printed as one line with its numbers and seconds as it ends:
   conv_model    ``apps.bench_conv --model ve/celebahq_256_ncsnpp_continuous``
            at one forward a run, 2 runs a route.
 
-Any failure raises and exits non-zero.  The last two lines are the kernels
+The CPU oracles of ``slice``, ``dit_forward``, ``ve_forward`` and
+``backbones`` run on a background thread beside the card's phases.  Any
+failure raises and exits non-zero.  The last two lines are the kernels
 JSON and ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
@@ -335,11 +355,12 @@ EVAL_INCEPTION_SIZES = ((4, 32, 32), (1, 48, 64), (1, 320, 336))
 INCEPTION_TOL = 1e-4
 EVAL_FEAT_BATCH = 256
 # (b) apps.fid_selfcheck on the full-width CIFAR model (random weights, its
-# graphed sampling), cut from 50,000 images and 2048 features to 2,048 and
+# graphed sampling), cut from 50,000 images and 2048 features to 1,024 and
 # 256 (the run's time limit: 4,096 images took 18.7 s of the phase on an
-# H100, 2,048 9.6 s); the pass rule is the app's (self FID < 2, shifted /
-# self > 50): 2,048 images read a ratio of 15,790 there, 4,096 30,830
-EVAL_SELFCHECK_ARGS = ("--num", "2048", "--batch", "1024", "--micro", "64",
+# H100, 2,048 9.6 s; 1,024 since the train phase came); the pass rule is
+# the app's (self FID < 2, shifted / self > 50): 2,048 images read a ratio
+# of 15,790 there, 4,096 30,830
+EVAL_SELFCHECK_ARGS = ("--num", "1024", "--batch", "1024", "--micro", "64",
                        "--feat-dim", "256", "--feat-batch", "256")
 # the graphed branch of apps.cifar10_ni.make_sampler, which the self-check
 # samples through, against its eager branch over the same model (bf16,
@@ -514,6 +535,61 @@ K6_FORCED = (((4, 256, 256, 128), 32, "silu", 4),
 # 50 steps (50 x rows, 51 eps rows)
 K1_DIT = (4096, 50, 51)
 
+# the train phase: the score-SDE trainer on the full-width CIFAR model
+# (CIFAR10_DDPMPP_CONTINUOUS, VPSDE), every weight random (randomize_).
+# (1) each training kernel's backward (K2, K3, K6 as autograd Functions,
+# their backward autograd through a library twin, cuDNN on) at every
+# distinct K2/K3/K6 signature of the model's forward at TRAIN_CHECK_BATCH
+# images, f32 and bf16, against autograd through the plain versions with
+# cuDNN off, the same random cotangents on every output (K3's channel sums
+# too); relative L2 of each input's gradient: f32 sums in other orders
+# (~1e-6) at F32 limit GRAD_F32_TOL; in bf16 the twin's backward convs round
+# their outputs to bf16 where the plain version's run in f32, so each
+# gradient is held at GRAD_BF16_TOL beside a control, the plain version's
+# bf16 gradient against its f32 one
+TRAIN_CHECK_BATCH = 2
+GRAD_F32_TOL, GRAD_BF16_TOL = 1e-4, 2e-2
+# (2) one f32 loss and gradient of the whole model at TRAIN_MODEL_BATCH
+# images (the check batch: cuDNN makes a plan per new shape), the same
+# draws (t, z), through the kernels against the plain versions on the card
+# (TF32 off): the loss relative, the gradient's global relative L2.  The
+# control, K3's backward with its channel-sum cotangents dropped (the
+# statistics feed every following GroupNorm), must land above the gradient
+# limit
+TRAIN_MODEL_BATCH = TRAIN_CHECK_BATCH
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+# (3) TRAIN_OPT_STEPS optimizer steps (Adam, warm-up 2, clip 1.0, EMA) at
+# TRAIN_MODEL_BATCH from one state, kernels against plain versions, the
+# same draws; relative L2 over all leaves of the parameters' and the EMA's
+# moves from the initial state and of Adam's moments: the gradients' f32
+# differences (~1e-5) pass through Adam's normalisation
+TRAIN_OPT_STEPS, TRAIN_OPT_TOL = 3, 1e-3
+# (5) apps.train at batch 128 for TRAIN_APP_ITERS iterations on a
+# toy_dataset binary, f32 and --bf16, each with snapshots at iterations 1
+# and 2 (in f32 each with its EMA sample grid by the PC sampler, cut to
+# TRAIN_SAMPLE_STEPS of 1000 steps); in f32 then a second run whose
+# checkpoints-meta is the step-2 snapshot, resumed to the end, against the
+# uninterrupted run (the resume's code is the same for both types): the
+# same step, and the state within the run-to-run floor of the card (K3's
+# channel sums and K6's grid forms add by f32 atomics in any order, so two
+# runs of the same step differ in last bits: ~1e-7 in f32, ~1e-4 in bf16);
+# relative L2 over all leaves
+TRAIN_APP_BATCH, TRAIN_APP_ITERS, TRAIN_SAMPLE_STEPS = 128, 3, 2
+TRAIN_RESUME_TOL = 1e-5
+# (6) apps.bench_train at batch 128, f32 and bf16, under the port's switch 2
+# (K3, K2, K6) and 0 (cuDNN forward, K6): one step a timed run, the median
+# of 3 runs; FLOPs per step counted on the CPU before the phase
+BENCH_TRAIN_ARGS = ("--batch", "128", "--chain", "1", "--runs", "3")
+
+# the CPU oracles (float32 forwards and samplers on the host that the
+# card's runs are held against) run in one child process beside the
+# card's phases (a thread would share the main thread's GIL), in this
+# order, each with this many intra-op threads of the host's 8 cores: the
+# first two are awaited a few seconds after the build, the rest run beside
+# host-bound phases (samplers, eval), whose launches need the cores
+ORACLE_JOBS = {"forward": 4, "slice": 4, "inception": 2, "dit": 2, "ve": 2,
+               "ddpm": 2}
+
 T0 = time.perf_counter()
 
 
@@ -643,6 +719,110 @@ def check_stats(what, got, want, mag):
         raise AssertionError(f"{what}: stats err {float(d.max()):.3e} over "
                              f"{STATS_TOL:g} x sum|v|")
     return float(d.max())
+
+
+_ORACLE_CACHE = {}
+
+
+def _cifar_cpu():
+    """The CIFAR model of main() on the CPU (cached in the oracle
+    process)."""
+    if "cifar" not in _ORACLE_CACHE:
+        from naturaldiffusion_tpu_torch.models.ncsnpp import (
+            CIFAR10_DDPMPP_CONTINUOUS, NCSNpp)
+        _ORACLE_CACHE["cifar"] = randomize_(
+            NCSNpp(CIFAR10_DDPMPP_CONTINUOUS, device="cpu"), SEED).eval()
+    return _ORACLE_CACHE["cifar"]
+
+
+def oracle_job(name):
+    """One CPU oracle, in the oracle process, from the seeds the phases use
+    (the noises the phases draw on the card drawn there the same way):
+    numpy outputs and the CPU seconds."""
+    import torch
+    torch.set_num_threads(ORACLE_JOBS[name])
+    torch.set_grad_enabled(False)
+    t = time.perf_counter()
+    if name == "forward":
+        out = _cifar_cpu()(*forward_input(torch))
+    elif name == "slice":
+        from naturaldiffusion_tpu_torch.coeffs import registry
+        init, noises = ni_draws(torch, SEED + 3)
+        out = cpu_ni(_cifar_cpu(), registry.derive("ddpm", STEPS),
+                     init[:2].cpu(), noises[:, :2].cpu())
+    elif name == "inception":
+        cpu = inception_model()
+        # (pool, logits) of each input, flat
+        out = tuple(t for x in inception_inputs(torch)[0] for t in cpu(x))
+    elif name == "dit":
+        from naturaldiffusion_tpu_torch.models.dit import (
+            DIT_CONFIGS, DiT, forward_with_cfg)
+        cfg = DIT_CONFIGS[DIT_MODEL]
+        cpu = randomize_dit_(DiT(cfg, device="cuda"), SEED + 10).to("cpu")
+        torch.cuda.empty_cache()
+        x, tt, y = dit_forward_input(torch, cfg)
+        out = {}
+        for quant in (None, "w8"):
+            cpu.set_quant(quant)
+            tq = time.perf_counter()
+            out[quant] = (forward_with_cfg(cpu, x, tt, y, DIT_CFG_SCALE,
+                                           cfg.in_channels).numpy(),
+                          time.perf_counter() - tq)
+        return out, time.perf_counter() - t
+    elif name == "ve":
+        out = ve_model(SEED + 20)[1](*ve_input(torch))
+    elif name == "ddpm":
+        from naturaldiffusion_tpu_torch.coeffs import registry
+        init, noises = ni_draws(torch, SEED + 71)
+        out = cpu_ni(zoo_model(DDPM_CONFIG, SEED + 70)[1],
+                     registry.derive("ddpm", STEPS), init[:2].cpu(),
+                     noises[:, :2].cpu())
+    else:
+        raise KeyError(name)
+    if isinstance(out, tuple):
+        out = tuple(o.numpy() for o in out)
+    else:
+        out = out.numpy()
+    return out, time.perf_counter() - t
+
+
+class Oracles:
+    """The CPU oracles (ORACLE_JOBS) computed one after another in a child
+    process made beside the build, at the lowest CPU priority (at the
+    default one its start-up slowed the build's nvcc-bound cores by 8 s,
+    and its jobs the host-bound phases); ``get(name)`` waits for one and
+    returns ``(output as torch tensors, seconds in the child, seconds
+    waited)``.  The child uses the card only to draw the noises and DiT's
+    weights as the phases do; it is stopped at exit."""
+
+    def __init__(self):
+        import multiprocessing
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=os.nice, initargs=(19,))
+        self.jobs = {n: self.pool.submit(oracle_job, n) for n in ORACLE_JOBS}
+        atexit.register(self.stop)
+
+    def get(self, name):
+        import torch
+        tw = time.perf_counter()
+        out, secs = self.jobs.pop(name).result()
+        wait = time.perf_counter() - tw
+        if isinstance(out, dict):
+            out = {k: (torch.from_numpy(v), s) for k, (v, s) in out.items()}
+        elif isinstance(out, tuple):
+            out = tuple(torch.from_numpy(o) for o in out)
+        else:
+            out = torch.from_numpy(out)
+        return out, secs, wait
+
+    def stop(self):
+        procs = list((getattr(self.pool, "_processes", None) or {}).values())
+        self.pool.shutdown(wait=False, cancel_futures=True)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
 
 
 def phase_env():
@@ -1086,17 +1266,23 @@ def phase_kernels(model_bf16, details):
     return out, n_plain, n_gn, n_k6
 
 
-def phase_forward(model_f32):
+def forward_input(torch):
+    gen = torch.Generator().manual_seed(SEED + 2)
+    return torch.randn((2, 32, 32, 3), generator=gen), torch.tensor(
+        [999.0, 500.0])
+
+
+def phase_forward(model_f32, oracles):
+    """One full-width CIFAR forward in f32, the card against the CPU
+    forward (the oracle process's, at ``forward_input``)."""
     import torch
     t = time.perf_counter()
-    gen = torch.Generator().manual_seed(SEED + 2)
-    x = torch.randn((2, 32, 32, 3), generator=gen)
-    tc = torch.tensor([999.0, 500.0])
+    x, tc = forward_input(torch)
     card = copy.deepcopy(model_f32).to("cuda")
     with torch.no_grad():
-        want = model_f32(x, tc)
         got = card(x.cuda(), tc.cuda())
     torch.cuda.synchronize()
+    want = oracles.get("forward")[0]
     err = rel_l2(got, want)
     if not (torch.isfinite(got).all() and err <= FORWARD_TOL
             and got.shape == (2, 32, 32, 3)):
@@ -1156,11 +1342,11 @@ class GraphedForward:
         return self.out.clone()
 
 
-def slice_controls(model_f32, matrix, init, noises, want):
-    """Two readings beside the slice check, on its first 2 samples: the
-    same bf16 run through the plain versions on the card (what bf16 alone
+def slice_controls(model_f32, matrix, init, noises):
+    """Two runs beside the slice check, on its first 2 samples: the same
+    bf16 run through the plain versions on the card (what bf16 alone
     costs), and through the kernels with the time conditioning 1 % off (a
-    small fault).  Both are relative L2 against the CPU float32 run."""
+    small fault).  The caller holds both against the CPU float32 run."""
     import importlib
     import torch
     from naturaldiffusion_tpu_torch.apps.cifar10_ni import make_sampler
@@ -1188,10 +1374,29 @@ def slice_controls(model_f32, matrix, init, noises, want):
     fault = make_sampler(TimeOff(model_f32), matrix, micro=BATCH,
                          dtype=torch.bfloat16, device="cuda")(
         init, noises=noises)
-    return rel_l2(plain, want), rel_l2(fault, want)
+    return plain, fault
 
 
-def phase_slice(model_f32, n_plain, n_gn, n_k6, smi):
+def ni_draws(torch, seed):
+    """The init and the per-step noises of a BATCH-image NI run, drawn on
+    the card from ``seed`` (the phases' and the oracle process's)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    init = torch.randn((BATCH, 32, 32, 3), generator=gen, device="cuda")
+    noises = torch.randn((STEPS, BATCH, 32, 32, 3), generator=gen,
+                         device="cuda")
+    return init, noises
+
+
+def cpu_ni(model, matrix, init, noises):
+    """The float32 NI run of ``model`` on the CPU (an oracle), from host
+    copies of ``init`` and ``noises``."""
+    import torch
+    from naturaldiffusion_tpu_torch.apps.cifar10_ni import make_sampler
+    return make_sampler(model, matrix, micro=BATCH, dtype=torch.float32,
+                        device="cpu")(init, noises=noises)
+
+
+def phase_slice(model_f32, n_plain, n_gn, n_k6, smi, oracles):
     import torch
     from naturaldiffusion_tpu_torch.apps.cifar10_ni import make_sampler
     from naturaldiffusion_tpu_torch.coeffs import registry
@@ -1204,10 +1409,7 @@ def phase_slice(model_f32, n_plain, n_gn, n_k6, smi):
     matrix = registry.derive("ddpm", STEPS)
     run = make_sampler(model_f32, matrix, micro=BATCH, dtype=torch.bfloat16,
                        device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    init = torch.randn((BATCH, 32, 32, 3), generator=gen, device="cuda")
-    noises = torch.randn((STEPS, BATCH, 32, 32, 3), generator=gen,
-                         device="cuda")
+    init, noises = ni_draws(torch, SEED + 3)
     run(init, noises=noises)                     # warm-up
     torch.cuda.synchronize()
     parts["setup_and_warm_up"] = time.perf_counter() - t
@@ -1232,23 +1434,21 @@ def phase_slice(model_f32, n_plain, n_gn, n_k6, smi):
     prof = profiled(torch, lambda: run(init, noises=noises))  # where it goes
     parts["profiled_run"] = time.perf_counter() - tp
 
-    # the first 2 samples against the CPU in float32, fed the same noises;
     # the same 2 through the kernels in float32 pin the loop more tightly
-    tp = time.perf_counter()
-    cpu = make_sampler(model_f32, matrix, micro=BATCH, dtype=torch.float32,
-                       device="cpu")
-    want = cpu(init[:2].cpu(), noises=noises[:, :2].cpu())
-    parts["cpu_oracle"] = time.perf_counter() - tp
     tp = time.perf_counter()
     card32 = make_sampler(model_f32, matrix, micro=BATCH,
                           dtype=torch.float32, device="cuda")
     got32 = card32(init[:2], noises=noises[:, :2])
-    err, err32 = rel_l2(out[:2], want), rel_l2(got32, want)
     parts["card_f32"] = time.perf_counter() - tp
     tp = time.perf_counter()
-    ctl_plain, ctl_fault = slice_controls(model_f32, matrix, init[:2],
-                                          noises[:, :2], want)
+    plain, fault = slice_controls(model_f32, matrix, init[:2], noises[:, :2])
     parts["controls"] = time.perf_counter() - tp
+    # the first 2 samples in float32 on the CPU, fed the same noises (the
+    # oracle process's)
+    want, parts["cpu_oracle_s"], parts["cpu_oracle_wait"] = oracles.get(
+        "slice")
+    err, err32 = rel_l2(out[:2], want), rel_l2(got32, want)
+    ctl_plain, ctl_fault = rel_l2(plain, want), rel_l2(fault, want)
     if err > SLICE_TOL or err32 > SLICE_F32_TOL:
         raise AssertionError(f"slice: rel L2 {err:.3e} (bf16, tol "
                              f"{SLICE_TOL:g}), {err32:.3e} (f32, tol "
@@ -1627,10 +1827,9 @@ def phase_samplers(model_f32, n_plain, n_gn, n_k6, smi):
     return drive.total
 
 
-def eval_inception(smi):
-    """(a) The FID Inception in f32 on the card against the CPU at
-    EVAL_INCEPTION_SIZES, then its features timed at EVAL_FEAT_BATCH CIFAR
-    images (resize included)."""
+def inception_model():
+    """The FID Inception with every leaf random (its BatchNorms too), on the
+    CPU."""
     import torch
     from naturaldiffusion_tpu_torch.eval.inception import (
         FIDInceptionV3, randomize_inception_)
@@ -1646,14 +1845,29 @@ def eval_inception(smi):
                     if leaf == "scale" else
                     0.5 + torch.rand(p.shape, generator=g) if leaf == "var"
                     else 0.1 * torch.randn(p.shape, generator=g))
-    cpu.eval()
-    card = copy.deepcopy(cpu).to("cuda")
+    return cpu.eval()
+
+
+def inception_inputs(torch):
+    """The inputs at EVAL_INCEPTION_SIZES and the timing batch."""
     gen = torch.Generator().manual_seed(SEED + 61)
+    xs = [torch.rand((n, h, w, 3), generator=gen)
+          for n, h, w in EVAL_INCEPTION_SIZES]
+    return xs, torch.rand((EVAL_FEAT_BATCH, 32, 32, 3), generator=gen)
+
+
+def eval_inception(smi, oracles):
+    """(a) The FID Inception in f32 on the card against the CPU (the oracle
+    process's forwards) at EVAL_INCEPTION_SIZES, then its features timed
+    at EVAL_FEAT_BATCH CIFAR images (resize included)."""
+    import torch
+    card = inception_model().to("cuda")
+    xs, xb = inception_inputs(torch)
+    outs = oracles.get("inception")[0]
+    wants = [outs[2 * i:2 * i + 2] for i in range(len(xs))]
     rows = []
-    for n, h, w in EVAL_INCEPTION_SIZES:
-        x = torch.rand((n, h, w, 3), generator=gen)
+    for (n, h, w), x, want in zip(EVAL_INCEPTION_SIZES, xs, wants):
         with torch.no_grad():
-            want = cpu(x)
             got = card(x.cuda())
         errs = [rel_l2(g, w_) for g, w_ in zip(got, want)]
         rows.append(dict(shape=[n, h, w], rel_l2_pool=errs[0],
@@ -1664,7 +1878,7 @@ def eval_inception(smi):
         if not (all(torch.isfinite(g).all() for g in got)
                 and max(errs) <= INCEPTION_TOL):
             raise AssertionError(f"eval inception: {rows[-1]}")
-    xb = torch.rand((EVAL_FEAT_BATCH, 32, 32, 3), generator=gen).cuda()
+    xb = xb.cuda()
     ms = Timer(torch, reps=3)(lambda: card(xb))
     return dict(sizes=rows, tol=INCEPTION_TOL, feature_batch=EVAL_FEAT_BATCH,
                 feature_ms=ms, feature_img_per_s=EVAL_FEAT_BATCH / ms * 1e3,
@@ -1704,7 +1918,7 @@ def eval_selfcheck(model_f32, n_plain, n_gn, n_k6):
         raise AssertionError(f"eval fid_selfcheck: rc {rc}, launches {got} "
                              f"!= {want}, row {row}")
     return dict(row=row, args=list(EVAL_SELFCHECK_ARGS),
-                reduction="2,048 images of 50,000, 256 of 2048 features"), got
+                reduction="1,024 images of 50,000, 256 of 2048 features"), got
 
 
 def eval_graphed_sampler(model_f32):
@@ -1868,7 +2082,7 @@ def eval_quant(model_f32, drive):
     return reports
 
 
-def phase_eval(model_f32, n_plain, n_gn, n_k6, smi):
+def phase_eval(model_f32, n_plain, n_gn, n_k6, smi, oracles):
     """The evaluation modules at full width with random weights: (a) the
     FID Inception, card against CPU; (b) ``apps.fid_selfcheck``; (c) PC
     inpainting and colorization; (d) ``apps.quant_accuracy``.  Its
@@ -1876,7 +2090,7 @@ def phase_eval(model_f32, n_plain, n_gn, n_k6, smi):
     import torch
     t0 = time.perf_counter()
     drive = Drive("eval", form_counters)
-    inception = eval_inception(smi)
+    inception = eval_inception(smi, oracles)
     ta = time.perf_counter()
     selfcheck, sc_launches = eval_selfcheck(model_f32, n_plain, n_gn, n_k6)
     selfcheck["graphed_sampler"] = eval_graphed_sampler(model_f32)
@@ -1896,6 +2110,362 @@ def phase_eval(model_f32, n_plain, n_gn, n_k6, smi):
                                quant_accuracy=time.perf_counter() - tc),
           launches=launches)
     return launches
+
+
+def train_grads(torch, fn, ins, cots, cudnn=True):
+    """Gradients of ``sum(out_i * cot_i)`` for the tensors of ``ins`` (None
+    kept out) through ``fn``, on fresh leaves, cuDNN on or off."""
+    leaves = [None if t is None else t.detach().clone().requires_grad_()
+              for t in ins]
+    # cudnn.flags() sets allow_tf32 too (True by default): keep it off
+    off = (contextlib.nullcontext() if cudnn else
+           torch.backends.cudnn.flags(enabled=False, allow_tf32=False))
+    with torch.enable_grad(), off:
+        out = fn(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        loss = sum((o.float() * c).sum() for o, c in zip(outs, cots))
+        return torch.autograd.grad(loss, [t for t in leaves
+                                          if t is not None])
+
+
+def grad_rows(torch, C, G, sigs, dtype, gen):
+    """Each kernel's Function against the plain version's autograd at each
+    signature (see TRAIN_CHECK_BATCH): (kind, signature, [rel L2 per input
+    gradient], [bf16 control per input gradient])."""
+    rows = []
+    for (kind, sig), _ in sorted(sigs.items(), key=repr):
+        if kind == "group_norm":
+            x, scale, bias, eb = gn_inputs(torch, sig, dtype, gen)
+            _, groups, act, _ = sig
+            ins = [x, scale, bias, eb]
+
+            def fn(x_, s_, b_, e_):
+                return G.fused_group_norm(x_, s_, b_, groups, act=act,
+                                          extra_bias=e_)
+
+            def plain(x_, s_, b_, e_):
+                return G.fused_group_norm_reference(x_, s_, b_, groups,
+                                                    act=act, extra_bias=e_)
+            cots = [torch.randn(x.shape, generator=gen, device="cuda")]
+        else:
+            x, w, b, pre, sk = conv_inputs(torch, sig, dtype, gen)
+            stats = sig[4]
+            ins = [x, w, b] + (list(pre) if pre else [None, None]) + [sk]
+            kw = dict(skip_rescale=sk is not None, emit_stats=stats)
+
+            def fn(x_, w_, b_, pw, pb, sk_, _kind=kind, _kw=kw):
+                pre_ = None if pw is None else (pw, pb)
+                if _kind == "conv3x3_gn":
+                    return C.conv3x3_gn(x_, w_, b_, pre=pre_, skip=sk_, **_kw)
+                return getattr(C, _kind)(x_, w_, b_)
+
+            def plain(x_, w_, b_, pw, pb, sk_, _kw=kw):
+                pre_ = None if pw is None else (pw, pb)
+                return C.conv3x3_gn_reference(x_, w_, b_, pre=pre_, skip=sk_,
+                                              **_kw)
+            (bb, hh, ww, _), wshape = sig[0], sig[1]
+            cots = [torch.randn((bb, hh, ww, wshape[3]), generator=gen,
+                                device="cuda")]
+            if stats:
+                cots += [torch.randn((bb, wshape[3]), generator=gen,
+                                     device="cuda") / (hh * ww),
+                         torch.randn((bb, wshape[3]), generator=gen,
+                                     device="cuda") / (4 * hh * ww)]
+        got = train_grads(torch, fn, ins, cots)
+        want = train_grads(torch, plain, ins, cots, cudnn=False)
+        errs = [rel_l2(g, w_) for g, w_ in zip(got, want)]
+        ctl = []
+        if dtype == torch.bfloat16:
+            ins32 = [None if t is None else t.float() for t in ins]
+            want32 = train_grads(torch, plain, ins32, cots, cudnn=False)
+            ctl = [rel_l2(w_, r) for w_, r in zip(want, want32)]
+        tol = GRAD_BF16_TOL if dtype == torch.bfloat16 else GRAD_F32_TOL
+        if not all(math.isfinite(e) and e <= tol for e in errs):
+            raise AssertionError(f"train: {kind} {sig} {dtype} backward: "
+                                 f"gradient rel L2 {errs} > {tol:g}")
+        rows.append((kind, repr(sig), errs, ctl))
+    return rows
+
+
+def train_loss_grads(torch, sde, apply, params, batch, t, z):
+    from naturaldiffusion_tpu_torch.train.losses import sde_loss_given
+    with torch.enable_grad():
+        loss = sde_loss_given(sde, apply, params, batch, t, z)
+        return loss.detach(), torch.autograd.grad(loss,
+                                                  list(params.values()))
+
+
+def rel_l2_all(a, b):
+    """Relative L2 of two lists of tensors taken as one vector."""
+    num = sum(float((x.double() - y.double()).norm()) ** 2
+              for x, y in zip(a, b))
+    den = sum(float(y.double().norm()) ** 2 for y in b)
+    return math.sqrt(num / den)
+
+
+def train_model_check(model_f32, net, per_fwd):
+    """(2) the whole-model loss and gradient through ``net`` (``model_f32``
+    on the card), kernels against plain versions, its control and the
+    launches of the forward and of the backward; (3) the optimizer steps.
+    Returns the numbers."""
+    import torch
+    from naturaldiffusion_tpu_torch.ops import conv3x3 as C
+    from naturaldiffusion_tpu_torch.sde import VPSDE
+    from naturaldiffusion_tpu_torch.train import make_train_step
+    from naturaldiffusion_tpu_torch.train.losses import sde_draws
+    from naturaldiffusion_tpu_torch.train.state import functional_apply
+
+    sde = VPSDE()
+    apply, params = functional_apply(net), dict(net.named_parameters())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    batch = torch.rand((TRAIN_MODEL_BATCH, 32, 32, 3), generator=gen,
+                       device="cuda") * 2 - 1
+    t, z = sde_draws(sde, batch, gen)
+    counters = bench_counters()
+    zero_counts(counters)
+    from naturaldiffusion_tpu_torch.train.losses import sde_loss_given
+    with torch.enable_grad():
+        loss = sde_loss_given(sde, apply, params, batch, t, z)
+        torch.cuda.synchronize()
+        fwd_counts = read_counts(counters)
+        grads = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    all_counts = read_counts(counters)
+    if fwd_counts != per_fwd or all_counts != per_fwd:
+        raise AssertionError(f"train: launches forward {fwd_counts}, with "
+                             f"the backward {all_counts} != {per_fwd}")
+    with plain_convs_and_norms():
+        loss_p, grads_p = train_loss_grads(torch, sde, apply, params, batch,
+                                           t, z)
+    loss_err = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    grad_err = rel_l2_all(grads, grads_p)
+    grad_norm = math.sqrt(sum(float(g.double().norm()) ** 2
+                              for g in grads_p))
+    orig = C._ConvFn.backward
+
+    def stats_dropped(ctx, *g):
+        return orig(ctx, g[0], *([None] * (len(g) - 1)))
+    C._ConvFn.backward = staticmethod(stats_dropped)
+    try:
+        _, grads_c = train_loss_grads(torch, sde, apply, params, batch, t, z)
+    finally:
+        C._ConvFn.backward = orig
+    control = rel_l2_all(grads_c, grads_p)
+    if not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
+            and control > TRAIN_GRAD_TOL):
+        raise AssertionError(
+            f"train: loss rel {loss_err:.3e} (tol {TRAIN_LOSS_TOL:g}), grad "
+            f"rel L2 {grad_err:.3e} (tol {TRAIN_GRAD_TOL:g}), stats-dropped "
+            f"control {control:.3e} (must exceed the tol)")
+    model = dict(loss=float(loss), loss_rel_err=loss_err,
+                 grad_rel_l2=grad_err, grad_norm=grad_norm,
+                 control_stats_cotangent_dropped_rel_l2=control,
+                 launches_forward=fwd_counts,
+                 launches_forward_and_backward=all_counts)
+
+    # (3) optimizer steps from one state, kernels against plain versions
+    draws = [sde_draws(sde, batch, gen) for _ in range(TRAIN_OPT_STEPS)]
+    states = []
+    for plain in (False, True):
+        net_s = copy.deepcopy(model_f32).to("cuda")
+        init, step = make_train_step(sde, functional_apply(net_s), warmup=2,
+                                     grad_clip=1.0)
+        st = init(dict(net_s.named_parameters()))
+        p0 = [p.detach().clone() for p in st.params.values()]
+        with (plain_convs_and_norms() if plain else
+              contextlib.nullcontext()):
+            zero_counts(counters)
+            for d in draws:
+                st, loss_s = step(st, None, batch, draws=d)
+            torch.cuda.synchronize()
+        if not plain and read_counts(counters) != expect_counts(
+                per_fwd, TRAIN_OPT_STEPS):
+            raise AssertionError(f"train: optimizer steps launched "
+                                 f"{read_counts(counters)}")
+        states.append((st, p0, float(loss_s)))
+    (sk, p0, lk), (sp, _, lp) = states
+
+    def moves(st):
+        return ([p - q for p, q in zip(st.params.values(), p0)],
+                [e - q for e, q in zip(st.ema.shadow, p0)])
+    (dk, ek), (dp, ep) = moves(sk), moves(sp)
+    opt = dict(params_move_rel_l2=rel_l2_all(dk, dp),
+               ema_move_rel_l2=rel_l2_all(ek, ep),
+               mu_rel_l2=rel_l2_all(sk.opt_state.mu, sp.opt_state.mu),
+               nu_rel_l2=rel_l2_all(sk.opt_state.nu, sp.opt_state.nu),
+               last_loss=lk, last_loss_plain=lp,
+               clip_active_at_step_1=grad_norm > 1.0,
+               step=sk.step, tol=TRAIN_OPT_TOL)
+    if sk.step != TRAIN_OPT_STEPS or not all(
+            opt[k] <= TRAIN_OPT_TOL for k in ("params_move_rel_l2",
+                                              "ema_move_rel_l2", "mu_rel_l2",
+                                              "nu_rel_l2")):
+        raise AssertionError(f"train: optimizer steps {opt}")
+    return model, opt
+
+
+def train_state_leaves(st):
+    return (list(st.params.values()), st.opt_state.mu, st.opt_state.nu,
+            st.ema.shadow)
+
+
+def train_app_runs(per_fwd):
+    """(5) ``apps.train`` on a toy binary: per type the uninterrupted run
+    with its snapshots at iterations 1 and 2 (in f32 with their sample
+    grids, and its launches counted); in f32 then a run whose
+    ``checkpoints-meta`` is the step-2 snapshot (hard links), resumed to
+    the end, against it."""
+    import tempfile
+    import torch
+    from naturaldiffusion_tpu_torch.apps import toy_dataset
+    from naturaldiffusion_tpu_torch.apps import train as TA
+    res, launches = {}, None
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(io.StringIO()) as log:
+        data = os.path.join(tmp, "toy")
+        toy_dataset.main(["--out", data, "--n-train",
+                          str(TRAIN_APP_BATCH * 10), "--n-eval", "128"])
+        for kind in ("f32", "bf16"):
+            common = ["--data-dir", data, "--batch", str(TRAIN_APP_BATCH),
+                      "--snapshot-freq", "1", "--preemption-freq", "1000000",
+                      "--sample-steps", str(TRAIN_SAMPLE_STEPS),
+                      "--log-freq", "1", "--n-iters", str(TRAIN_APP_ITERS)
+                      ] + (["--bf16", "--no-snapshot-samples"]
+                           if kind == "bf16" else [])
+            whole_dir = os.path.join(tmp, f"{kind}_whole")
+            counters = bench_counters()
+            zero_counts(counters)
+            tw = time.perf_counter()
+            whole = TA.train(TA.parse(["--workdir", whole_dir] + common)[0])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - tw
+            snaps = [os.path.join(whole_dir, "checkpoints", f"checkpoint_{i}")
+                     for i in range(1, TRAIN_APP_ITERS)]
+            grids = [os.path.join(whole_dir, "samples", f"iter_{i}.png")
+                     for i in range(1, TRAIN_APP_ITERS) if kind == "f32"]
+            losses = [json.loads(line)["value"] for line in open(
+                os.path.join(whole_dir, "metrics.jsonl"))
+                if '"training_loss"' in line]
+            res[kind] = dict(wall_s=wall, losses=losses, step=whole.step)
+            if not (whole.step == TRAIN_APP_ITERS
+                    and len(losses) == TRAIN_APP_ITERS
+                    and all(math.isfinite(v) for v in losses)
+                    and all(os.path.isfile(os.path.join(p, "state.pt"))
+                            for p in snaps)
+                    and all(map(os.path.isfile, grids))):
+                raise AssertionError(f"train app {kind}: {res[kind]}, or no "
+                                     f"snapshot or sample grid")
+            if kind == "bf16":
+                break
+            launches = read_counts(counters)
+            want = expect_counts(per_fwd, TRAIN_APP_ITERS
+                                 + len(grids) * TRAIN_SAMPLE_STEPS)
+            if launches != want:
+                raise AssertionError(f"train app launches {launches} != "
+                                     f"{want}")
+            cut_dir = os.path.join(tmp, f"{kind}_resumed")
+            meta = os.path.join(cut_dir, "checkpoints-meta")
+            os.makedirs(meta)
+            for f in os.listdir(snaps[0]):      # the step-2 state
+                os.link(os.path.join(snaps[0], f), os.path.join(meta, f))
+            tc = time.perf_counter()
+            resumed = TA.train(TA.parse(["--workdir", cut_dir] + common + [
+                "--snapshot-freq", "1000000", "--no-snapshot-samples"])[0])
+            torch.cuda.synchronize()
+            errs = {name: rel_l2_all(a, b) for name, a, b in zip(
+                ("params", "mu", "nu", "ema"), train_state_leaves(resumed),
+                train_state_leaves(whole))}
+            res[kind].update(resumed_run_s=time.perf_counter() - tc,
+                             resumed_step=resumed.step,
+                             resumed_vs_whole_rel_l2=errs,
+                             tol=TRAIN_RESUME_TOL)
+            if not (resumed.step == TRAIN_APP_ITERS
+                    and max(errs.values()) <= TRAIN_RESUME_TOL):
+                raise AssertionError(f"train app resume: {res[kind]}")
+            del whole, resumed
+            torch.cuda.empty_cache()
+    if "start step 2" not in log.getvalue():
+        raise AssertionError("train app: the resumed run did not start at "
+                             "step 2")
+    return res, launches
+
+
+def train_bench(flops):
+    """(6) ``apps.bench_train`` at each conv switch and type, with the
+    busy share and top kernels of one profiled step."""
+    import torch
+    from naturaldiffusion_tpu_torch.apps import bench_train
+    from naturaldiffusion_tpu_torch.apps.bench import form_env
+    from naturaldiffusion_tpu_torch.models.ncsnpp import NCSNpp
+    rows = {}
+    net = NCSNpp(device="cuda")      # one model for the four runs
+    for flag in ("2", "0"):
+        for kind in ("f32", "bf16"):
+            argv = list(BENCH_TRAIN_ARGS) + ["--flops", str(flops)] + (
+                ["--bf16"] if kind == "bf16" else [])
+            with form_env(flag, ""):
+                rec, one = bench_train.run(bench_train.parse(argv), net)
+                prof = profiled(torch, one)
+            print(json.dumps(rec), flush=True)
+            rows[f"switch{flag}_{kind}"] = dict(
+                step_ms=rec["step_ms"], img_per_s=rec["img_per_sec"],
+                flops_per_step=rec["flops_per_step"],
+                mfu_vs_f32_peak=rec["mfu_vs_f32_peak"],
+                mfu_vs_bf16_peak=rec["mfu_vs_bf16_peak"],
+                peak_mem_bytes=rec["peak_mem_bytes"],
+                busy_share=prof["busy_share"],
+                profiled_step=prof)
+            del one
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train(model_f32, smi, train_flops):
+    """The training slice: (1) each kernel's backward, (2) the whole-model
+    gradient, (3) optimizer steps, (4) launches, (5) the trainer, (6) the
+    bench (see the constants)."""
+    import torch
+    from naturaldiffusion_tpu_torch.ops import conv3x3 as C
+    from naturaldiffusion_tpu_torch.ops import group_norm as G
+    t0 = time.perf_counter()
+    parts = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    net = copy.deepcopy(model_f32).to("cuda")
+    xs = torch.zeros((TRAIN_CHECK_BATCH, 32, 32, 3), device="cuda")
+    ts = torch.full((TRAIN_CHECK_BATCH,), 500.0, device="cuda")
+    rows = {}
+    sigs = kernel_signatures(net, xs, ts)
+    rows["torch.float32"] = grad_rows(torch, C, G, sigs, torch.float32, gen)
+    parts["kernel_backward_f32"] = time.perf_counter() - t0
+    tp = time.perf_counter()
+    per_fwd = per_forward_counts(net, torch.float32, TRAIN_MODEL_BATCH)
+    model_chk, opt = train_model_check(model_f32, net, per_fwd)
+    parts["model_and_optimizer"] = time.perf_counter() - tp
+    tp = time.perf_counter()
+    net = net.to(torch.bfloat16)
+    sigs = kernel_signatures(net, xs.to(torch.bfloat16), ts)
+    rows["torch.bfloat16"] = grad_rows(torch, C, G, sigs, torch.bfloat16,
+                                       gen)
+    parts["kernel_backward_bf16"] = time.perf_counter() - tp
+    del net
+    worst = {d: max(max(r[2]) for r in rr) for d, rr in rows.items()}
+    controls = max(max(r[3]) for r in rows["torch.bfloat16"])
+    tp = time.perf_counter()
+    app, launches = train_app_runs(per_fwd)
+    parts["train_app"] = time.perf_counter() - tp
+    tp = time.perf_counter()
+    bench = train_bench(int(train_flops.result()))
+    parts["bench_train"] = time.perf_counter() - tp
+    phase("train", t0, card=smi, per_forward=per_fwd,
+          kernel_backward=dict(
+              signatures={d: len(r) for d, r in rows.items()},
+              worst_rel_l2=worst, tol_f32=GRAD_F32_TOL,
+              tol_bf16=GRAD_BF16_TOL,
+              control_bf16_plain_vs_f32_max_rel_l2=controls,
+              rows=rows),
+          model_check=model_chk, optimizer_steps=opt, train_app=app,
+          bench_train=bench, launches=launches, seconds_by_part=parts)
+    return launches, bench
 
 
 def bench_counters():
@@ -2821,38 +3391,45 @@ def dit_inputs(torch, cfg, gen, device):
     return torch.cat([half, half]), y
 
 
-def phase_dit_forward(model32):
+def dit_forward_input(torch, cfg):
+    gen = torch.Generator().manual_seed(SEED + 12)
+    x, y = dit_inputs(torch, cfg, gen, "cpu")
+    x[1] = torch.randn(x[1].shape, generator=gen)   # the wrapper drops it
+    return x, torch.tensor([999.0, 999.0]), y
+
+
+def phase_dit_forward(model32, oracles):
+    """The full-width DiT-XL/2 CFG forward in f32, plain and under w8, the
+    card against the oracle process's CPU forwards (of the same weights,
+    made from the same seed on the card)."""
     import torch
     from naturaldiffusion_tpu_torch.models.dit import forward_with_cfg
 
     t0 = time.perf_counter()
     cfg = model32.config
-    cpu = copy.deepcopy(model32).to("cpu")
-    gen = torch.Generator().manual_seed(SEED + 12)
-    x, y = dit_inputs(torch, cfg, gen, "cpu")
-    x[1] = torch.randn(x[1].shape, generator=gen)   # the wrapper drops it
-    t = torch.tensor([999.0, 999.0])
+    x, t, y = dit_forward_input(torch, cfg)
     counters = dit_counters()
-    res, wants = {}, {}
+    res, wants, got_all = {}, {}, {}
     for quant in (None, "w8"):
         model32.set_quant(quant)
-        cpu.set_quant(quant)
         zero_counts(counters)
         with torch.no_grad():
-            got = forward_with_cfg(model32, x.cuda(), t.cuda(), y.cuda(),
-                                   DIT_CFG_SCALE, cfg.in_channels)
+            got_all[quant] = forward_with_cfg(
+                model32, x.cuda(), t.cuda(), y.cuda(), DIT_CFG_SCALE,
+                cfg.in_channels)
             torch.cuda.synchronize()
-            counts = read_counts(counters)
-            tc = time.perf_counter()
-            want = forward_with_cfg(cpu, x, t, y, DIT_CFG_SCALE,
-                                    cfg.in_channels)
-            cpu_s = time.perf_counter() - tc
+            res[quant or "float"] = dict(launches=read_counts(counters))
+    cpu_out, _, wait_s = oracles.get("dit")
+    for quant in (None, "w8"):
+        got, (want, cpu_s) = got_all[quant], cpu_out[quant]
+        counts = res[quant or "float"]["launches"]
         expect = {"fused_weighted_sum": 0, "flash_attention": cfg.depth,
                   "matmul_wdq": 4 * cfg.depth if quant else 0}
         err = rel_l2(got, want)
         wants[quant] = want
         res[quant or "float"] = dict(rel_l2=err, launches=counts,
                                      cpu_seconds=cpu_s)
+        res["oracle_wait_s"] = wait_s
         tol = DIT_W8_FORWARD_TOL if quant else DIT_FORWARD_TOL
         if counts != expect:
             raise AssertionError(f"dit_forward {quant}: launches {counts} "
@@ -2867,7 +3444,6 @@ def phase_dit_forward(model32):
           tol=DIT_FORWARD_TOL, tol_w8=DIT_W8_FORWARD_TOL,
           params=sum(p.numel() for p in model32.parameters()),
           out_abs_max=float(want.abs().max()))
-    del cpu
 
 
 def phase_dit_slice(model32, smi):
@@ -3194,22 +3770,24 @@ def ve_model(seed):
     return cfg, randomize_(NCSNpp(cfg.model, device="cpu"), seed).eval()
 
 
-def phase_ve_forward(model_f32):
-    """The full-width VE forward at one image, f32, card against CPU; then a
-    level-0 resblock at the path's shape in its unfused and fused forms."""
+def ve_input(torch):
+    gen = torch.Generator().manual_seed(SEED + 22)
+    return torch.rand((1, 256, 256, 3), generator=gen), torch.tensor([1.87])
+
+
+def phase_ve_forward(model_f32, oracles):
+    """The full-width VE forward at one image, f32, card against CPU (the
+    oracle process's forward); then a level-0 resblock at the path's shape
+    in its unfused and fused forms."""
     import torch
     from naturaldiffusion_tpu_torch.models.layers import ResnetBlockBigGANpp
     t0 = time.perf_counter()
-    gen = torch.Generator().manual_seed(SEED + 22)
-    x = torch.rand((1, 256, 256, 3), generator=gen)
-    sigma = torch.tensor([1.87])
+    x, sigma = ve_input(torch)
     card = copy.deepcopy(model_f32).to("cuda")
     with torch.no_grad():
         got = card(x.cuda(), sigma.cuda())
         torch.cuda.synchronize()
-        tc = time.perf_counter()
-        want = model_f32(x, sigma)
-        cpu_s = time.perf_counter() - tc
+    want, cpu_s, _ = oracles.get("ve")
     err = rel_l2(got, want)
     if not (torch.isfinite(got).all() and err <= VE_FORWARD_TOL
             and got.shape == (1, 256, 256, 3)):
@@ -3417,7 +3995,7 @@ def time_conv(sig, kind, timer, gen):
     return row
 
 
-def backbones_ddpm(drive, smi):
+def backbones_ddpm(drive, smi, oracles):
     """(a) The CIFAR-10 DDPM under 10-step DDPM NI, batch 64, bf16, through
     ``cifar10_ni.make_sampler``: the eager run, the graphed sampler's build
     (warm-up and capture) and a replay, each drive's launches against the
@@ -3433,10 +4011,7 @@ def backbones_ddpm(drive, smi):
     _, model = zoo_model(DDPM_CONFIG, SEED + 70)
     params = sum(p.numel() for p in model.parameters())
     matrix = registry.derive("ddpm", STEPS)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
-    init = torch.randn((BATCH, 32, 32, 3), generator=gen, device="cuda")
-    noises = torch.randn((STEPS, BATCH, 32, 32, 3), generator=gen,
-                         device="cuda")
+    init, noises = ni_draws(torch, SEED + 71)
     net16 = copy.deepcopy(model).to(device="cuda", dtype=torch.bfloat16)
     per_fwd = per_forward_counts(net16, torch.bfloat16, BATCH)
     if per_fwd != DDPM_PER_FORWARD:
@@ -3465,16 +4040,12 @@ def backbones_ddpm(drive, smi):
         raise AssertionError(f"ddpm: graph against eager {err_graph:.3e} "
                              f"> {BENCH_GRAPH_TOL:g}, or non-finite")
 
-    tc = time.perf_counter()
-    cpu = make_sampler(model, matrix, micro=BATCH, dtype=torch.float32,
-                       device="cpu")
-    want = cpu(init[:2].cpu(), noises=noises[:, :2].cpu())
-    cpu_s = time.perf_counter() - tc
     got32 = make_sampler(model, matrix, micro=BATCH, dtype=torch.float32,
                          device="cuda")(init[:2], noises=noises[:, :2])
+    plain, fault = slice_controls(model, matrix, init[:2], noises[:, :2])
+    want, cpu_s, _ = oracles.get("ddpm")
     err, err32 = rel_l2(out[:2], want), rel_l2(got32, want)
-    ctl_plain, ctl_fault = slice_controls(model, matrix, init[:2],
-                                          noises[:, :2], want)
+    ctl_plain, ctl_fault = rel_l2(plain, want), rel_l2(fault, want)
     if err > SLICE_TOL or err32 > SLICE_F32_TOL:
         raise AssertionError(f"ddpm: rel L2 {err:.3e} (bf16, tol "
                              f"{SLICE_TOL:g}), {err32:.3e} (f32, tol "
@@ -3705,7 +4276,7 @@ def backbones_ncsnpp_1024(drive, timer):
     return res, timed
 
 
-def phase_backbones(smi, details):
+def phase_backbones(smi, details, oracles):
     """The other backbones through their zoo entries: (a) the CIFAR DDPM
     under NI, (b) the 256^2 DDPM, (c) NCSNv2, NCSN and ALD, (d) the 1024^2
     NCSN++.  Its launches are the drives' (``Drive``)."""
@@ -3714,7 +4285,7 @@ def phase_backbones(smi, details):
     drive = Drive("backbones")
     timer = Timer(torch, reps=5)
     parts, res = {}, {}
-    for part, fn in (("ddpm", lambda: backbones_ddpm(drive, smi)),
+    for part, fn in (("ddpm", lambda: backbones_ddpm(drive, smi, oracles)),
                      ("ddpm_256", lambda: backbones_ddpm_256(drive, timer)),
                      ("refinenets", lambda: backbones_refinenets(drive)),
                      ("ncsnpp_1024", lambda: backbones_ncsnpp_1024(
@@ -4395,8 +4966,9 @@ def start_joint_profile():
     card, then waits for a line on its stdin, so its start-up (seconds of
     host time) runs beside the other phases."""
     root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    env = {k: v for k, v in os.environ.items() if k != "TEARDOWN_CUPTI"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p)
     return subprocess.Popen([sys.executable, "-c", _JOINT_PROFILE],
                             cwd=root, env=env, stdin=subprocess.PIPE,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -4558,6 +5130,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, root)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # inference everywhere but the train phase, which turns grad mode on
+    # where it differentiates: the kernels' autograd Functions stay off the
+    # inference paths (grad mode is per thread: a pool thread that runs a
+    # model sets its own)
+    torch.set_grad_enabled(False)
 
     from naturaldiffusion_tpu_torch.models.ncsnpp import (
         CIFAR10_DDPMPP_CONTINUOUS, NCSNpp)
@@ -4572,9 +5149,21 @@ def main(argv=None) -> int:
     dit_count = pool.submit(flops_via_cpu_subprocess, TOOL_TRACE_COUNT[0],
                             list(TOOL_TRACE_COUNT[1]))
     building = pool.submit(phase_build)
+    # the CPU oracles, in a child process beside the build and the phases
+    oracles = Oracles()
+    # a profiler session leaves CUPTI's per-launch cost behind unless CUPTI
+    # is torn down at its end (one A/B on one host: the phases after the
+    # build ~7 % faster with it); set before the first session, and kept
+    # from tool_kernels' profiling child (it timed out under it)
+    os.environ["TEARDOWN_CUPTI"] = "1"
     warm_profiler(torch)
     building.result()
     bench_flops = int(counting.result())
+    # the train phase's FLOPs a step (bench_train on the CPU), counted while
+    # the card runs the phases before it
+    train_count = pool.submit(flops_via_cpu_subprocess,
+                              "naturaldiffusion_tpu_torch.apps.bench_train",
+                              list(BENCH_TRAIN_ARGS[:2]))
     pool.shutdown(wait=False)
     # tool_kernels' profiling child, started now and stopped at exit
     child = start_joint_profile()
@@ -4588,10 +5177,11 @@ def main(argv=None) -> int:
     kernels.append(int8_entry)
     routes = phase_routes(model_bf16, model, n_plain, n_gn, n_int8)
     del model_bf16
-    phase_forward(model)
-    launches, ips = phase_slice(model, n_plain, n_gn, n_k6, smi)
+    phase_forward(model, oracles)
+    launches, ips = phase_slice(model, n_plain, n_gn, n_k6, smi, oracles)
     sampler_launches = phase_samplers(model, n_plain, n_gn, n_k6, smi)
-    eval_launches = phase_eval(model, n_plain, n_gn, n_k6, smi)
+    eval_launches = phase_eval(model, n_plain, n_gn, n_k6, smi, oracles)
+    train_launches, train_bench_rows = phase_train(model, smi, train_count)
     del model
     bench_launches, bench_traced, bench_lines = phase_bench(
         n_plain, n_gn, n_k6, bench_flops)
@@ -4602,7 +5192,7 @@ def main(argv=None) -> int:
     dit32 = randomize_dit_(DiT(DIT_CONFIGS[DIT_MODEL], device="cuda"),
                            SEED + 10).eval()
     kernels += phase_dit_kernels(details)
-    phase_dit_forward(dit32)
+    phase_dit_forward(dit32, oracles)
     dit_runs = phase_dit_slice(dit32, smi)
     del dit32
     phase_dit_validate()
@@ -4612,10 +5202,10 @@ def main(argv=None) -> int:
     ve_kernels, ve_sigs = phase_ve_kernels(ve16, details)
     kernels += ve_kernels
     del ve16
-    phase_ve_forward(ve32)
+    phase_ve_forward(ve32, oracles)
     ve_launches = phase_ve_slice(ve_cfg, ve32, ve_sigs, smi)
     del ve32
-    backbone_launches = phase_backbones(smi, details)
+    backbone_launches = phase_backbones(smi, details, oracles)
     sd3_launches, sd3_w8_launches, k9_sd3, k7_sd3 = phase_sd3(smi,
                                                                details)
 
@@ -4652,6 +5242,7 @@ def main(argv=None) -> int:
                "sd3_slice_w8": sd3_w8_launches,
                "samplers": sampler_launches,
                "eval": eval_launches,
+               "train": train_launches,
                "attention_bench": attn_launches,
                "fused_act": k8_launches}
     # each kernel's count from the path that exercises it: K1-K3 the
@@ -4695,6 +5286,7 @@ def main(argv=None) -> int:
             json.dump(dict(card=smi, img_per_s=ips, dit=dit_runs,
                            bench=bench_lines, bench_forms=form_lines,
                            routes=routes, bench_conv_model=conv_model,
+                           bench_train=train_bench_rows,
                            attention_bench=attn_rows, bench_dit_toy=dit_toy,
                            bench_conv=conv_row, kernels=kernels,
                            details=details), fh, indent=1)

@@ -25,9 +25,10 @@ init the residual branches contribute almost nothing and the quantization
 noise of Conv_0/NIN is annihilated before it reaches the output (an
 int8-against-bf16 MAE ~1e-6 at init against ~1e-2 trained).  Runs of the
 init document finiteness only; a caller that passes a model with every
-weight random (``run(args, model=...)``) sees the noise.  The JAX app's
-``--workdir`` (trained EMA weights from a training state) waits for the
-port of training.
+weight random (``run(args, model=...)``) sees the noise.  ``--workdir``
+takes the EMA weights of a training state (``apps.train``'s
+``checkpoints-meta``), as the JAX app does, and adds the sample-quality
+delta of the toy dataset's marginals (``w1_delta``).
 """
 
 from __future__ import annotations
@@ -66,21 +67,47 @@ def parse_args(argv=None):
     p.add_argument("--num-res-blocks", type=int, default=4)
     p.add_argument("--out", default=None)
     p.add_argument("--mode", default="int8", choices=MODES)
+    p.add_argument("--workdir", default=None,
+                   help="apps.train workdir (EMA weights); random init "
+                        "when absent or empty")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
+
+
+@torch.no_grad()
+def load_ema(model, workdir: str) -> str:
+    """Fill ``model`` with the EMA weights of the training state in
+    ``workdir`` (restored over a template of its own parameters; a missing
+    checkpoint warns and leaves it as it is); returns the weights' source,
+    ``ema_step<N>`` or ``random``."""
+    from ..sde import VPSDE
+    from ..train import checkpoint as ckpt
+    from ..train import make_train_step
+    from ..train.state import functional_apply
+    init_fn, _ = make_train_step(VPSDE(), functional_apply(model))
+    params = dict(model.named_parameters())
+    state = ckpt.restore(workdir, init_fn(params))
+    if state.step == 0:
+        return "random"
+    for p, s in zip(params.values(), state.ema.shadow):
+        p.copy_(s)
+    return f"ema_step{state.step}"
 
 
 def trajectories(args, model=None):
     """The final images ``(bf16, int8, fp64 oracle)`` of ``args`` (from
     :func:`parse_args`) as float numpy arrays, over ``model`` (an NCSN++ at
-    32², float32) when given, else a new one from seed 1.  The init and the
-    per-step noises are drawn on the CPU from ``torch.Generator`` seeds 0
-    and 9."""
+    32², float32) when given, else a new one from seed 1 (with
+    ``args.workdir``'s EMA weights where it holds a training state).  The
+    init and the per-step noises are drawn on the CPU from
+    ``torch.Generator`` seeds 0 and 9."""
     dev = resolve_device(args.device)
     if model is None:
         model = NCSNpp(NCSNppConfig(nf=args.nf, ch_mult=args.ch_mult,
                                     num_res_blocks=args.num_res_blocks),
                        device=dev, seed=1)
+        args.weights = (load_ema(model, args.workdir) if args.workdir
+                        else "random")
     net16 = copy.deepcopy(model).to(device=dev, dtype=torch.bfloat16).eval()
     net32 = copy.deepcopy(model).to(device=dev, dtype=torch.float32).eval()
     m = registry.derive("ddpm", args.steps)
@@ -126,8 +153,9 @@ def run(args, model=None) -> dict:
     i8_bf, i8_bf_max = _mae(out_int8, out_bf16)
     bf_or, bf_or_max = _mae(out_bf16, oracle)
     i8_or, i8_or_max = _mae(out_int8, oracle)
-    return {
-        "weights": "random", "mode": args.mode,
+    weights = getattr(args, "weights", "random")
+    report = {
+        "weights": weights, "mode": args.mode,
         "steps": args.steps, "batch": args.batch,
         "output_mean_abs": round(float(np.abs(oracle).mean()), 5),
         "mae_int8_vs_bf16": i8_bf, "max_int8_vs_bf16": i8_bf_max,
@@ -136,6 +164,14 @@ def run(args, model=None) -> dict:
         "int8_extra_error_ratio": round(i8_or / max(bf_or, 1e-30), 3),
         "finite": bool(np.isfinite(out_int8).all()),
     }
+    if weights != "random":
+        # population-level sample-quality delta (the toy marginals' W1)
+        from .toy_dataset import summary_stats, wasserstein1
+        sb = summary_stats(np.clip((out_bf16 + 1) / 2, 0, 1))
+        si = summary_stats(np.clip((out_int8 + 1) / 2, 0, 1))
+        report["w1_delta"] = {k: round(wasserstein1(sb[k], si[k]), 6)
+                              for k in sb}
+    return report
 
 
 def main(argv=None) -> int:

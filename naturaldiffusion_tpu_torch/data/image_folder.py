@@ -9,15 +9,16 @@ preprocessing (``deps/score_sde_pytorch/datasets.py:44-139``) without TFDS.
   crop to the short side, then an antialiased bicubic resize;
 * plain: a bilinear resize.
 
-``apps.degradation`` VAE-encodes such a folder.  The shuffled training
-iterator (``image_folder_iterator``) comes with training (ROADMAP.md,
-Queue A, entry 11).  PIL is imported where an image is opened.
+``apps.degradation`` VAE-encodes such a folder; :func:`image_folder_iterator`
+is the shuffled training iterator.  PIL is imported where an image is
+opened.
 """
 
 from __future__ import annotations
 
 import glob
 import os
+from typing import Iterator
 
 import numpy as np
 
@@ -74,3 +75,45 @@ def preprocess_image(img, image_size: int, mode: str = "resize"):
     else:
         raise ValueError(mode)
     return np.asarray(img, np.float32) / 255.0
+
+
+def image_folder_iterator(data_dir: str, batch_size: int, *,
+                          image_size: int, mode: str = "resize",
+                          random_flip: bool = True, centered: bool = True,
+                          seed: int = 0,
+                          cache: bool = True,
+                          cache_max_bytes: int = 2 << 30) -> Iterator:
+    """Infinite shuffled (images in model space, labels=zeros) batches over
+    every image file under ``data_dir`` (recursive), the JAX iterator's
+    draws from ``numpy.random.default_rng(seed)``: indices, then flips.
+    Decoded images are kept as uint8 up to ``cache_max_bytes``."""
+    from PIL import Image
+
+    from .datasets import get_scaler
+
+    files = list_images(data_dir)
+    if not files:
+        raise FileNotFoundError(f"no images under {data_dir!r}")
+    rng = np.random.default_rng(seed)
+    scaler = get_scaler(centered)
+    # a bounded uint8 cache: LSUN-scale folders would otherwise grow an
+    # unbounded float32 dict
+    cached: dict[int, np.ndarray] = {}
+    cache_budget = int(cache_max_bytes // (image_size * image_size * 3))
+
+    def load(i: int) -> np.ndarray:
+        if cache and i in cached:
+            return cached[i].astype(np.float32) / 255.0
+        with Image.open(files[i]) as im:
+            arr = preprocess_image(im, image_size, mode)
+        if cache and len(cached) < cache_budget:
+            cached[i] = np.clip(arr * 255.0, 0, 255).astype(np.uint8)
+        return arr
+
+    while True:
+        idx = rng.integers(0, len(files), batch_size)
+        imgs = np.stack([load(int(i)) for i in idx])
+        if random_flip:
+            flip = rng.random(batch_size) < 0.5
+            imgs[flip] = imgs[flip, :, ::-1]
+        yield scaler(imgs), np.zeros(batch_size, np.int32)

@@ -50,6 +50,7 @@ class NISchedule:
         return self.x0.shape[0]
 
 
+@torch.no_grad()
 def natural_inference(
     denoise_fn: Callable,
     sched: NISchedule,
@@ -130,6 +131,7 @@ def natural_inference(
     return z.reshape(shape)
 
 
+@torch.no_grad()
 def natural_inference_checked(denoise_fn, sched: NISchedule, init_noise,
                               **kwargs) -> torch.Tensor:
     """NaN-guarded NI: :func:`natural_inference` (same arguments), then one
@@ -155,6 +157,7 @@ def _at_step(tree, k: int):
     raise TypeError(f"step_inputs leaves must be tensors, got {type(tree)}")
 
 
+@torch.no_grad()
 def natural_inference_reference(
     denoise_fn, matrix: CoeffMatrix, init_noise: np.ndarray,
     *, noises: np.ndarray | None = None, prediction_type: str = "x0",

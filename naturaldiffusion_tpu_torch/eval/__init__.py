@@ -1,6 +1,6 @@
 """Evaluation of the port: FID and IS (``fid``) over pytorch-fid's
-InceptionV3 (``inception``).  ``eval/likelihood.py`` of the JAX package
-needs derivatives through the kernels and waits for the training slice."""
+InceptionV3 (``inception``), and the probability-flow bits/dim
+(``likelihood``)."""
 
 from .fid import (activations, compute_statistics, fid_from_samples,
                   frechet_distance, inception_score)

@@ -50,6 +50,7 @@ def frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> float:
                  - 2 * np.trace(covmean))
 
 
+@torch.no_grad()
 def activations(images, feature_fn: Callable, batch_size: int = 256,
                 pad_to_batch: bool = False) -> np.ndarray:
     """``[N, H, W, C]`` in [0, 1] (a numpy array or a tensor on any

@@ -225,3 +225,42 @@ def fill_from_torch(model, state_dict: Mapping[str, object], path_map=None,
         for name, p in module.named_parameters():
             p.copy_(torch.from_numpy(np.ascontiguousarray(values[name])))
     return [k for k in state_dict if k not in used]
+
+
+def train_state_from_jax(tree, model):
+    """The port's ``train.TrainState`` over ``model``'s own parameters from
+    a JAX ``TrainState`` with numpy leaves (``jax.device_get`` of one made
+    by the JAX package's ``make_train_step``): ``params`` (loaded by
+    :func:`load_jax_params`), the optax chain's state (Adam's ``count``,
+    ``mu`` and ``nu``, the learning-rate schedule's ``count``), the EMA's
+    ``shadow``, ``num_updates``, ``decay`` and ``warmup``, and ``step``.
+    The tensors land on the model's device in float32.  Read by attribute,
+    so nothing of JAX or optax is imported."""
+    from ..train.ema import EMA
+    from ..train.losses import OptState
+    from ..train.state import TrainState
+
+    load_jax_params(model, tree.params)
+    root = model.layers if isinstance(getattr(model, "layers", None),
+                                      torch.nn.Module) else model
+    prefix = "layers." if root is not model else ""
+    params = dict(model.named_parameters())
+    dev = next(iter(params.values())).device
+
+    def tensors(subtree):
+        flat: dict[str, object] = {}
+        _flatten(subtree, "", flat)
+        return [torch.from_numpy(np.array(flat[n[len(prefix):]],
+                                          np.float32)).to(dev)
+                for n in params]
+
+    # the chain's states are named tuples: (clip, Adam, schedule)
+    adam = next(s for s in tree.opt_state if "mu" in getattr(s, "_fields", ()))
+    sched = next(s for s in tree.opt_state
+                 if tuple(getattr(s, "_fields", ())) == ("count",))
+    opt = OptState(int(adam.count), tensors(adam.mu), tensors(adam.nu),
+                   int(sched.count))
+    e = tree.ema
+    ema = EMA(tensors(e.shadow), float(e.decay), int(e.num_updates),
+              bool(e.warmup))
+    return TrainState(int(tree.step), params, opt, ema)

@@ -19,9 +19,11 @@ weights in their current type.  The float ``QDense``, the adaLN and final
 JAX package leaves them to XLA.  Dense layers compute in the promoted type
 of input and weights, LayerNorm keeps f32 statistics with flax's
 ``E[x^2] - E[x]^2`` variance, and GELU is the tanh form, all as flax does.
-Inference only: label dropout, ``token_constraint`` and ``mesh`` are not
-ported.  ``dit_torch_path_map`` maps the names to a DiT release
-checkpoint's for ``convert.fill_from_torch``.
+``forward(..., train=True)`` drops labels to the null class with
+``class_dropout_prob`` (JAX ``models/dit.py:243-248``), drawn from an
+explicit generator or the given ``drop`` mask.  ``token_constraint`` and
+``mesh`` are not ported.  ``dit_torch_path_map`` maps the names to a DiT
+release checkpoint's for ``convert.fill_from_torch``.
 """
 
 from __future__ import annotations
@@ -329,11 +331,21 @@ class DiT(nn.Module):
         temb = self.t_embedder_mlp_0(timestep_embedding(t, 256))
         return self.t_embedder_mlp_2(F.silu(temb))
 
-    def forward(self, x, t, y, mods=None):
+    def forward(self, x, t, y, mods=None, *, train: bool = False,
+                generator: torch.Generator | None = None, drop=None):
         """``mods``: one step's slice of :func:`dit_schedule_mods`; when
         given, the embedders and every adaLN product are skipped and ``t``,
-        ``y`` are ignored."""
+        ``y`` are ignored.  ``train`` with ``class_dropout_prob > 0``: each
+        label becomes the null class ``num_classes`` where ``drop`` (a [B]
+        bool mask) holds, or where a uniform draw from ``generator`` falls
+        below the probability."""
         cfg = self.config
+        if train and cfg.class_dropout_prob > 0 and mods is None:
+            if drop is None:
+                drop = torch.rand(y.shape[0], generator=generator,
+                                  device=y.device) < cfg.class_dropout_prob
+            y = torch.where(drop.to(y.device), torch.full_like(
+                y, cfg.num_classes), y)
         b, hh, ww, _ = x.shape
         p = cfg.patch_size
         tok = self.x_embedder_proj(x)

@@ -28,6 +28,7 @@ import math
 import torch
 
 from . import _cuda
+from ._autograd import inference_only
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 72)
@@ -168,6 +169,7 @@ def _launch(q, k, v, sm_scale, lse: bool, what: str):
     return out.transpose(1, 2), res
 
 
+@inference_only("flash_attention (K9)")
 def flash_attention(q, k, v, sm_scale: float):
     """Non-causal attention over ``[B, H, T, D]``, softmax in f32, output in
     q's type.  A CPU tensor takes :func:`mha_reference`; a CUDA tensor takes
@@ -209,6 +211,7 @@ def splash_reference(qs, k, v, *, save_residuals: bool = False):
     return out, torch.logsumexp(s, dim=-1)
 
 
+@inference_only("splash_attention (K10)")
 def _splash(qs, k, v, save_residuals: bool):
     """K10 on pre-scaled ``qs``: the kernel for CUDA tensors, the plain
     version for CPU ones."""

@@ -22,6 +22,14 @@ then the conv runs on float32 copies of the operands.  In bfloat16 every
 call runs one tensor-core kernel whose tiles :func:`_tile_plan` chooses
 here; float32 runs the SIMT kernels.
 
+K2, K3 and K4 are differentiable (:class:`_ConvFn`, under grad mode with an
+input that requires grad): the forward is the kernel (or the plain version
+on the CPU), the backward the vector-Jacobian product of
+:func:`conv3x3_twin`, the kernels' function in library ops, on the saved
+inputs (:func:`twin_vjp`: cuDNN's data and weight gradients on the card),
+as the JAX package's ``conv3x3_pallas`` and ``_fused_with_vjp`` take XLA
+backwards (``:896``, ``:732``).
+
 * :func:`conv3x3_library` — the same function as :func:`conv3x3` by one
   ``F.conv2d`` on channels-last views in the input's type (cuDNN on the
   card), the counterpart of the JAX package's ``conv3x3_xla`` (``:885``):
@@ -58,6 +66,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
+from ._autograd import needs_grad
 
 _RSQRT2 = 0.7071067811865476
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -249,26 +258,167 @@ def _launch(x, w, b, pre, skip, skip_rescale, emit_stats, what):
     return (y, s1, s2) if emit_stats else y
 
 
+def _acc_type(x):
+    """The twin's accumulation type: float32, or x's where wider (float64
+    in the tests), as JAX's ``promote_types(x, float32)``."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _prologue(x, pw, pb):
+    """``(xf, sigmoid(xf))`` of the prologue's pre-activation ``xf = x *
+    pre_w + pre_b`` in the accumulation type."""
+    xf = x.to(_acc_type(x)) * pw[:, None, None, :] + pb[:, None, None, :]
+    return xf, torch.sigmoid(xf)
+
+
+def _twin_acc(xin, w, b, skip, skip_rescale):
+    """The twin's accumulator (:func:`_acc_type`): ``F.conv2d`` on
+    channels-last views in xin's type (cuDNN on the card), then bias, skip
+    and 1/sqrt(2)."""
+    wcl = w.to(xin.dtype).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    at = _acc_type(xin)
+    acc = F.conv2d(xin.permute(0, 3, 1, 2), wcl, padding=1).permute(
+        0, 2, 3, 1).to(at)
+    if b is not None:
+        acc = acc + b.to(at)
+    if skip is not None:
+        acc = acc + skip.to(at)
+        if skip_rescale:
+            acc = acc * _RSQRT2
+    return acc
+
+
+def conv3x3_twin(x, w, b=None, pre=None, skip=None, skip_rescale=False,
+                 emit_stats=False):
+    """The kernels' function in library ops (the JAX package's
+    ``_fused_reference_xla`` and ``conv3x3_xla``, ``ops/conv3x3.py:690,
+    885``): the prologue ``xf * sigmoid(xf)`` of ``xf = x*pre_w + pre_b``
+    in float32 rounded to x's type, ``F.conv2d`` on channels-last views in
+    x's type, then bias, skip, 1/sqrt(2) and the channel sums in float32.
+    The backward of K2, K3 and K4 (:class:`_ConvFn`) is this function's
+    vector-Jacobian product."""
+    xin = x
+    if pre is not None:
+        xf, sig = _prologue(x, *pre)
+        xin = (xf * sig).to(x.dtype)
+    acc = _twin_acc(xin, w, b, skip, skip_rescale)
+    y = acc.to(x.dtype)
+    if not emit_stats:
+        return y
+    return y, acc.sum(dim=(1, 2)), (acc * acc).sum(dim=(1, 2))
+
+
+def _conv_grads(g, xin, w, need_x, need_w):
+    """(d xin, d w) of ``conv(xin, w)`` for the output cotangent ``g`` in
+    xin's type: one ``aten.convolution_backward`` on channels-last views
+    (cuDNN's data and weight gradients on the card)."""
+    wcl = w.to(xin.dtype).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    gx, gw, _ = torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), xin.permute(0, 3, 1, 2), wcl, None, [1, 1],
+        [1, 1], [1, 1], False, [0, 0], 1, [need_x, need_w, False])
+    return (None if gx is None else gx.permute(0, 2, 3, 1),
+            None if gw is None else gw.permute(2, 3, 1, 0))
+
+
+def twin_vjp(inputs, grads, needs, skip_rescale=False):
+    """The cotangents of ``(x, w, b, pre_w, pre_b, skip)`` (``inputs``,
+    None where absent) for the cotangents ``grads`` of ``(y, s1, s2)``
+    (None where an output took none) of :func:`conv3x3_twin`, written out:
+    float32 ``d acc = dy + ds1 + 2 acc ds2`` (``acc`` recomputed only where
+    s2 takes a cotangent), the skip's and 1/sqrt(2)'s, the bias's sum, the
+    conv's data and weight gradients in x's type (:func:`_conv_grads`), and
+    the prologue's ``silu'(xf)``, ``x`` and 1.  ``needs[i]``: input i
+    wants one (the rest come back None)."""
+    x, w, b, pw, pb, skip = inputs
+    gy, gs1, gs2 = (tuple(grads) + (None, None))[:3]
+    f32 = _acc_type(x)
+    xin, xf = x, None
+    if pw is not None:
+        xf, sig = _prologue(x, pw, pb)
+        xin = (xf * sig).to(x.dtype)
+    gacc = None if gy is None else gy.to(f32)
+    for g, term in ((gs1, lambda: 1.0), (gs2, lambda: 2.0 * _twin_acc(
+            xin, w, b, skip, skip_rescale))):
+        if g is not None:
+            add = term() * g[:, None, None, :]
+            gacc = add if gacc is None else gacc + add
+    if gacc is None:
+        return (None,) * 6
+    if skip is not None and skip_rescale:
+        gacc = gacc * _RSQRT2
+    nx, nw, nb, npw, npb, nskip = needs
+    gxin, gw = _conv_grads(gacc.to(x.dtype), xin, w,
+                           bool(nx or npw or npb), bool(nw))
+    gx = gpw = gpb = None
+    if xf is not None and (nx or npw or npb):
+        gxf = gxin.to(f32) * (sig * (1.0 + xf * (1.0 - sig)))
+        gx = (gxf * pw[:, None, None, :]).to(x.dtype) if nx else None
+        gpw = (gxf * x.to(f32)).sum(dim=(1, 2)) if npw else None
+        gpb = gxf.sum(dim=(1, 2)) if npb else None
+    elif nx:
+        gx = gxin
+    return (gx, None if gw is None else gw.to(w.dtype),
+            gacc.sum(dim=(0, 1, 2)).to(b.dtype) if nb else None, gpw, gpb,
+            gacc.to(skip.dtype) if nskip else None)
+
+
+class _ConvFn(torch.autograd.Function):
+    """K2, K3 or K4 in the graph: ``run(x, w, b, pre_w, pre_b, skip)`` is
+    the forward (the kernel on the card, the plain version on the CPU);
+    the backward is :func:`twin_vjp` on the saved inputs, taking a
+    cotangent for each output (``y``, and ``s1``, ``s2`` with
+    ``emit_stats``) and giving one to each input."""
+
+    @staticmethod
+    def forward(ctx, run, skip_rescale, emit_stats, *inputs):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*inputs)
+        ctx.skip_rescale = skip_rescale
+        return run(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None, *twin_vjp(
+            ctx.saved_tensors, grads, ctx.needs_input_grad[3:],
+            ctx.skip_rescale))
+
+
+def _call(run, x, w, b, pre, skip, skip_rescale=False, emit_stats=False):
+    """``run`` directly, or through :class:`_ConvFn` where autograd needs
+    it."""
+    pw, pb = pre if pre is not None else (None, None)
+    if needs_grad(x, w, b, pw, pb, skip):
+        return _ConvFn.apply(run, skip_rescale, emit_stats, x, w, b, pw, pb,
+                             skip)
+    return run(x, w, b, pw, pb, skip)
+
+
 def conv3x3(x, w, b=None):
     """Stride-1 SAME 3x3 conv, NHWC: ``x [B,H,W,Cin] * w [3,3,Cin,Cout]
     (+ b [Cout])``, f32 accumulation, output in x's type.  A CPU tensor
-    takes the plain version; a CUDA tensor takes kernel K2 or raises."""
+    takes the plain version; a CUDA tensor takes kernel K2 or raises.
+    Differentiable (:class:`_ConvFn`)."""
     _check(x, w, b, None, None)
     if x.device.type == "cpu":
-        return conv3x3_gn_reference(x, w, b)
+        return _call(_plain, x, w, b, None, None)
+    return _call(_run_k2, x, w, b, None, None)
+
+
+def _plain(x, w, b, pw, pb, skip, skip_rescale=False, emit_stats=False):
+    return conv3x3_gn_reference(x, w, b, pre=None if pw is None else (pw, pb),
+                                skip=skip, skip_rescale=skip_rescale,
+                                emit_stats=emit_stats)
+
+
+def _run_k2(x, w, b, pw, pb, skip):
     y = _launch(x, w, b, None, None, False, False, "conv3x3")
     conv3x3.launches += 1
     return y
 
 
-def conv3x3_tiled(x, w, b=None):
-    """:func:`conv3x3` for the large maps that the JAX package sends to its
-    halo-tiled kernels: the same function, from kernel K4 on a CUDA tensor
-    (contiguous float32 or bfloat16; raises on anything else) and from the
-    plain version on a CPU one."""
-    _check(x, w, b, None, None)
-    if x.device.type == "cpu":
-        return conv3x3_gn_reference(x, w, b)
+def _run_k4(x, w, b, pw, pb, skip):
     _check_launch(x, w, b, None, None, "conv3x3_tiled")
     bsz, hh, ww, cin = x.shape
     if bsz > 65535:                         # the grid's z dimension
@@ -287,6 +437,17 @@ def conv3x3_tiled(x, w, b=None):
     return y
 
 
+def conv3x3_tiled(x, w, b=None):
+    """:func:`conv3x3` for the large maps that the JAX package sends to its
+    halo-tiled kernels: the same function, from kernel K4 on a CUDA tensor
+    (contiguous float32 or bfloat16; raises on anything else) and from the
+    plain version on a CPU one.  Differentiable, with K2's backward."""
+    _check(x, w, b, None, None)
+    if x.device.type == "cpu":
+        return _call(_plain, x, w, b, None, None)
+    return _call(_run_k4, x, w, b, None, None)
+
+
 def conv3x3_gn(x, w, b=None, *, pre=None, skip=None, skip_rescale=False,
                emit_stats=False):
     """Fused resblock conv: ``y = conv3x3(silu(x*pre_w + pre_b)) (+ b)
@@ -294,15 +455,20 @@ def conv3x3_gn(x, w, b=None, *, pre=None, skip=None, skip_rescale=False,
     of y's f32 value over H, W as float32 [B, Cout].
 
     ``pre`` is ``(pre_w, pre_b)``, float32 [B, Cin].  A CPU tensor takes
-    the plain version; a CUDA tensor takes kernel K3 or raises."""
+    the plain version; a CUDA tensor takes kernel K3 or raises.
+    Differentiable in every input, with cotangents taken on every output
+    (:class:`_ConvFn`)."""
     _check(x, w, b, pre, skip)
     if x.device.type == "cpu":
-        return conv3x3_gn_reference(x, w, b, pre=pre, skip=skip,
-                                    skip_rescale=skip_rescale,
-                                    emit_stats=emit_stats)
-    out = _launch(x, w, b, pre, skip, skip_rescale, emit_stats, "conv3x3_gn")
-    conv3x3_gn.launches += 1
-    return out
+        run = functools.partial(_plain, skip_rescale=skip_rescale,
+                                emit_stats=emit_stats)
+    else:
+        def run(x, w, b, pw, pb, skip):
+            out = _launch(x, w, b, None if pw is None else (pw, pb), skip,
+                          skip_rescale, emit_stats, "conv3x3_gn")
+            conv3x3_gn.launches += 1
+            return out
+    return _call(run, x, w, b, pre, skip, skip_rescale, emit_stats)
 
 
 conv3x3.launches = 0

@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from . import _cuda
+from ._autograd import inference_only
 
 SQRT2 = 1.4142135623730951
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,6 +44,7 @@ def fused_leaky_relu(x, bias=None, negative_slope: float = 0.2,
         scale, dtype=x.dtype, device=x.device)
 
 
+@inference_only("fused_leaky_relu_pallas (K8)")
 def fused_leaky_relu_pallas(x, bias, negative_slope: float = 0.2,
                             scale: float = SQRT2, interpret: bool = False):
     """The fused op over ``x`` [..., C] with ``bias`` [C]: kernel K8 for a

@@ -13,6 +13,11 @@
   held in the shared memory of a cluster of CTAs), grid (a unit held by the
   whole card's shared memory, one unit after another) or streamed
   (statistics then apply, in chunks that stay in L2).
+  K6 is differentiable (:class:`_GroupNormFn`, under grad mode with an
+  input that requires grad): its backward is the vector-Jacobian product
+  of :func:`group_norm_twin`, a library-form GroupNorm, on the saved inputs
+  (:func:`group_norm_vjp`), as the JAX package trains with its XLA
+  GroupNorm.
 * :func:`gn_channel_sums` / :func:`gn_affine_coeffs` -- the GroupNorm
   collapsed to per-(sample, channel) scalars, for the fused-resblock
   conv's prologue (``ops.conv3x3.conv3x3_gn``) and for K6's plain version.
@@ -29,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
+from ._autograd import needs_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # natdiff_group_norm(dtype, x, scale, bias, tb, tb_rows, silu, y, scratch,
@@ -332,6 +338,92 @@ def _check(x, scale, bias, num_groups, act, extra_bias):
         raise ValueError("tensors on several devices")
 
 
+def group_norm_twin(x, scale, bias, num_groups: int, eps: float = 1e-6,
+                    act: str | None = None, extra_bias=None):
+    """K6's function in library form, differentiable: ``x + extra_bias`` in
+    float32 (or x's type where wider), the group statistics by the fast
+    variance, the affine, the SiLU, output in x's type: the counterpart of
+    the JAX package's XLA GroupNorm (``ops/group_norm.py:214``), which JAX
+    trains with.  K6's backward is its vector-Jacobian product
+    (:func:`group_norm_vjp`)."""
+    b, h, w, c = x.shape
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(f32)
+    if extra_bias is not None:
+        xf = xf + extra_bias.to(f32)[:, None, None, :]
+    g = xf.reshape(b, h * w, num_groups, c // num_groups)
+    mu = g.mean(dim=(1, 3), keepdim=True)
+    var = (g * g).mean(dim=(1, 3), keepdim=True) - mu * mu
+    y = ((g - mu) * torch.rsqrt(var + eps)).reshape(b, h, w, c)
+    y = y * scale.to(f32) + bias.to(f32)
+    if act == "silu":
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype)
+
+
+def group_norm_vjp(inputs, gy, needs, num_groups: int, eps: float = 1e-6,
+                   act: str | None = None):
+    """The cotangents of ``(x, scale, bias, extra_bias)`` (``inputs``) for
+    the cotangent ``gy`` of :func:`group_norm_twin`, written out in float32:
+    the SiLU's ``s (1 + z (1 - s))``, the affine's sums, and the
+    normalisation's ``rstd (g - mean(g) - xhat mean(g xhat))`` over each
+    group (the fast variance ``E[x^2] - E[x]^2`` is the same function of x
+    as ``E[(x - mu)^2]``, so it has the same derivative).  ``needs[i]``:
+    input i wants one."""
+    x, scale, bias, extra_bias = inputs
+    b, h, w, c = x.shape
+    gs = c // num_groups
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(f32)
+    if extra_bias is not None:
+        xf = xf + extra_bias.to(f32)[:, None, None, :]
+    g = xf.reshape(b, h * w, num_groups, gs)
+    mu = g.mean(dim=(1, 3), keepdim=True)
+    rstd = torch.rsqrt((g * g).mean(dim=(1, 3), keepdim=True) - mu * mu
+                       + eps)
+    xhat = ((g - mu) * rstd).reshape(b, h, w, c)
+    gz = gy.to(f32)
+    if act == "silu":
+        z = xhat * scale.to(f32) + bias.to(f32)
+        sz = torch.sigmoid(z)
+        gz = gz * (sz * (1.0 + z * (1.0 - sz)))
+    nx, nscale, nbias, neb = needs
+    gscale = (gz * xhat).sum(dim=(0, 1, 2)).to(scale.dtype) if nscale \
+        else None
+    gbias = gz.sum(dim=(0, 1, 2)).to(bias.dtype) if nbias else None
+    gx = geb = None
+    if nx or neb:
+        gh = (gz * scale.to(f32)).reshape(b, h * w, num_groups, gs)
+        xh = xhat.reshape(b, h * w, num_groups, gs)
+        gxf = (rstd * (gh - gh.mean(dim=(1, 3), keepdim=True)
+                       - xh * (gh * xh).mean(dim=(1, 3), keepdim=True))
+               ).reshape(b, h, w, c)
+        gx = gxf.to(x.dtype) if nx else None
+        if neb:
+            geb = gxf.sum(dim=(1, 2))
+            if extra_bias.shape[0] == 1:
+                geb = geb.sum(dim=0, keepdim=True)
+            geb = geb.to(extra_bias.dtype)
+    return gx, gscale, gbias, geb
+
+
+class _GroupNormFn(torch.autograd.Function):
+    """K6 in the graph: ``run(x, scale, bias, extra_bias)`` is the forward
+    (the kernel on the card, the plain version on the CPU); the backward
+    is :func:`group_norm_vjp` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, run, num_groups, eps, act, *inputs):
+        ctx.save_for_backward(*inputs)
+        ctx.args = (num_groups, eps, act)
+        return run(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) * 4 + group_norm_vjp(
+            ctx.saved_tensors, g, ctx.needs_input_grad[4:], *ctx.args)
+
+
 def fused_group_norm(x, scale, bias, num_groups: int, eps: float = 1e-6,
                      act: str | None = None, extra_bias=None):
     """``GroupNorm(x + extra_bias)`` (+ SiLU) over ``x [B, H, W, C]``,
@@ -339,17 +431,28 @@ def fused_group_norm(x, scale, bias, num_groups: int, eps: float = 1e-6,
     (broadcast over the batch), added before the statistics.  A CPU tensor
     takes :func:`fused_group_norm_reference`; a CUDA tensor takes kernel
     K6 (x float32 or bfloat16) in the form :func:`_gn_plan` picks, or
-    raises."""
+    raises.  Differentiable in x, scale, bias and extra_bias
+    (:class:`_GroupNormFn`)."""
     _check(x, scale, bias, num_groups, act, extra_bias)
     if x.device.type == "cpu":
-        return fused_group_norm_reference(x, scale, bias, num_groups, eps=eps,
-                                          act=act, extra_bias=extra_bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"the GroupNorm kernel takes float32 or bfloat16, "
-                         f"got {x.dtype}")
-    return _launch(x, scale, bias, num_groups, eps, act, extra_bias, None)
+        def run(x, scale, bias, extra_bias):
+            return fused_group_norm_reference(x, scale, bias, num_groups,
+                                              eps=eps, act=act,
+                                              extra_bias=extra_bias)
+    else:
+        if x.device.type != "cuda":
+            raise ValueError(f"unsupported device {x.device}")
+        if x.dtype not in _DTYPES:
+            raise ValueError(f"the GroupNorm kernel takes float32 or "
+                             f"bfloat16, got {x.dtype}")
+
+        def run(x, scale, bias, extra_bias):
+            return _launch(x, scale, bias, num_groups, eps, act, extra_bias,
+                           None)
+    if needs_grad(x, scale, bias, extra_bias):
+        return _GroupNormFn.apply(run, num_groups, eps, act, x, scale, bias,
+                                  extra_bias)
+    return run(x, scale, bias, extra_bias)
 
 
 def _launch(x, scale, bias, num_groups, eps, act, extra_bias, form):

@@ -26,6 +26,7 @@ import functools
 import torch
 
 from . import _cuda
+from ._autograd import inference_only
 
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # natdiff_qmatmul(out_dtype, x, wp, s_w, bias, y, ws, M, N, K, bm, bn, bk,
@@ -127,6 +128,7 @@ def matmul_wdq_reference(x, w_i8, s_w, bias=None):
     return acc.to(x.dtype).reshape(*x.shape[:-1], n)
 
 
+@inference_only("matmul_wdq (K7)")
 def matmul_wdq(x, w_i8, s_w, bias=None, w_packed=None):
     """``x [..., K] @ dequant(w_i8 [K, N], s_w [N]) (+ bias [N])`` ->
     ``[..., N]`` in x's type.  Raises where :func:`qmatmul_ok` fails, as the

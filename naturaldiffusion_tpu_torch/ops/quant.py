@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
+from ._autograd import inference_only
 from .conv3x3 import _MIN_BLOCKS, _spatial_tile
 
 _QMAX = 127.0
@@ -309,6 +310,7 @@ def dynamic_scales(x: torch.Tensor, per_sample: bool = True):
     return s_x.expand(x.shape[0]).contiguous()
 
 
+@inference_only("conv3x3_int8 (Q1)")
 def conv3x3_int8(x, w, bias=None, *, per_sample: bool = True, w_i8=None,
                  s_w=None, act_amax: float | None = None, w_kern=None):
     """3x3 / stride-1 / SAME conv of NHWC ``x`` on int8 operands with int32

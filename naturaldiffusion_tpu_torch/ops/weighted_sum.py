@@ -22,6 +22,7 @@ import functools
 import torch
 
 from . import _cuda
+from ._autograd import inference_only
 
 # natdiff_weighted_sum(wx, we, bufx, bufe, live_x, live_e, m, split, out,
 # stream)
@@ -86,6 +87,7 @@ def _check(wx, we, bufx, bufe, live_x, live_e):
         raise ValueError(f"tensors on several devices: {devs}")
 
 
+@inference_only("fused_weighted_sum (K1)")
 def fused_weighted_sum(wx, we, bufx, bufe, live_x: int,
                        live_e: int) -> torch.Tensor:
     """``wx[:live_x] @ bufx[:live_x] + we[:live_e] @ bufe[:live_e]`` -> [M] f32.

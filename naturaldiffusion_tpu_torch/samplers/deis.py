@@ -44,6 +44,7 @@ def _ab_scan(eps_fn: Callable, rev_ts: np.ndarray, ab_coef: np.ndarray,
              order: int):
     """The shared AB loop (``sampler.py:37-48``): the history is seeded
     with xT."""
+    @torch.no_grad()
     def run(xT, ts, coefs):
         x, hist = xT, [xT] * order
         for i in range(ts.shape[0]):
@@ -124,6 +125,7 @@ def get_sampler_rho_ab(sde: LinearVPSDE, eps_fn: Callable, ts_phase: str,
     ab_coef = np.concatenate([np.ones((n, 1)), eps_coef], axis=1)
     alpha_ts = sde.t2alpha(rev_ts)
 
+    @torch.no_grad()
     def run(xT, ts, sas, coefs, sa_ends):
         # per step eps at x = v sqrt(alpha_{t_i}), t = rev_ts[i]; sa_ends =
         # [sqrt(alpha_{t_N}), sqrt(alpha_{t_0})]
@@ -175,6 +177,7 @@ def get_sampler_rho_rk(sde: LinearVPSDE, eps_fn: Callable, ts_phase: str,
     stage_t = np.stack([sde.rho2t(rev_rhos[:-1] + c * dr) for c in c_tab], 1)
     stage_sa = np.sqrt(sde.t2alpha(stage_t))
 
+    @torch.no_grad()
     def sampler(xT):
         ts, sas = _tensors((stage_t, stage_sa), xT)
         v = xT / float(np.sqrt(sde.t2alpha(rev_ts[0])))

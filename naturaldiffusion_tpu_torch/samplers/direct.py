@@ -24,6 +24,7 @@ import torch
 from ..schedules import DiscreteVP, LinearVPSDE, flow_sigmas
 
 
+@torch.no_grad()
 def _run(step_fn, x_init, times, per_step, dtype):
     """``x <- step_fn(x, t_k, k, *coefficients_k)`` for each step k; the
     times go to the device once, as one tensor."""

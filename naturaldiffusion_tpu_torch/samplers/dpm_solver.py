@@ -561,6 +561,7 @@ class DPMSolver:
 
     # orchestration ------------------------------------------------------------
 
+    @torch.no_grad()
     def sample(self, x, *, steps: int = 20, t_start=None, t_end=None,
                order: int = 2, skip_type: str = "time_uniform",
                method: str = "multistep", lower_order_final: bool = True,

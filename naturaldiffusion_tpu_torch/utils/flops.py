@@ -27,16 +27,18 @@ H100_BF16_PEAK = 989e12
 H100_INT8_PEAK = 1979e12
 
 
-def flops_counted(fn, *args, **kwargs) -> int:
+def flops_counted(fn, *args, with_grad: bool = False, **kwargs) -> int:
     """FLOPs of ``fn(*args, **kwargs)`` as PyTorch's counter sees them
-    (2 per multiply-add of each product).  Every tensor argument must lie
-    on the CPU: on the card the kernels would be invisible to the count."""
+    (2 per multiply-add of each product), under ``torch.no_grad`` unless
+    ``with_grad`` (a train step: its backward's products count too).
+    Every tensor argument must lie on the CPU: on the card the kernels
+    would be invisible to the count."""
     for a in list(args) + list(kwargs.values()):
         if isinstance(a, torch.Tensor) and a.device.type != "cpu":
             raise ValueError(f"flops_counted counts on the CPU, got a tensor "
                              f"on {a.device}")
     counter = FlopCounterMode(display=False)
-    with counter, torch.no_grad():
+    with counter, torch.set_grad_enabled(with_grad):
         fn(*args, **kwargs)
     return counter.get_total_flops()
 

@@ -178,10 +178,39 @@ assert pretokenize(basic_clean("It's a Café, 42!")) == [
 assert callable(sd3_ni.main) and callable(degradation.posterior_stats)
 assert callable(CLIPBPETokenizer.from_files) and SentencePieceUnigram
 assert callable(sd3_tokenize_ids)
+import tempfile
+from naturaldiffusion_tpu_torch import train as ttrain
+from naturaldiffusion_tpu_torch.apps import bench_train, toy_dataset
+from naturaldiffusion_tpu_torch.apps import train as train_app
+from naturaldiffusion_tpu_torch.data import datasets, image_folder, tfrecord
+from naturaldiffusion_tpu_torch.eval import likelihood
+from naturaldiffusion_tpu_torch.train import checkpoint
+from naturaldiffusion_tpu_torch.train.state import functional_apply
+from naturaldiffusion_tpu_torch.utils.metrics import MetricsWriter
+lin = torch.nn.Linear(3, 3)
+init, step = ttrain.make_train_step(
+    vp, lambda p, x, l: torch.func.functional_call(lin, p, (x,)), warmup=1)
+st, loss = step(init(dict(lin.named_parameters())),
+                torch.Generator().manual_seed(0), torch.randn(2, 2, 2, 3))
+assert torch.isfinite(loss) and st.step == 1
+with tempfile.TemporaryDirectory() as d:
+    checkpoint.save_meta(d, st)
+    assert checkpoint.restore(d, st).step == 1
+    MetricsWriter(d).close()
+    toy_dataset.main(["--out", d, "--n-train", "8", "--n-eval", "8"])
+    xb, _ = next(datasets.get_dataset("cifar10", 2, data_dir=d))
+    assert xb.shape == (2, 32, 32, 3)
+lk = likelihood.get_likelihood_fn(vp2, lambda x, t: -x, rtol=1e-2,
+                                  atol=1e-2)
+assert torch.isfinite(lk(torch.Generator(), torch.zeros(1, 4, 4, 3))[0]).all()
+assert callable(train_app.main) and callable(bench_train.count_flops)
+assert callable(tfrecord.tfrecord_iterator) and callable(functional_apply)
+assert callable(image_folder.image_folder_iterator)
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "naturaldiffusion_tpu", "regex", "pandas")
+             if k in ("jax", "naturaldiffusion_tpu", "regex", "pandas",
+                      "optax", "orbax")
              or k.startswith(("jax.", "jaxlib", "naturaldiffusion_tpu.",
-                              "regex.", "pandas.")))
+                              "regex.", "pandas.", "optax.", "orbax.")))
 print("LEAKED", bad)
 """
 
@@ -195,8 +224,10 @@ def test_port_runs_without_jax_in_a_fresh_process():
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|naturaldiffusion_tpu)"
-                     r"(\.|\s|$)", re.M)
+    """Nor optax or orbax: the trainer's optimizer and checkpoints are the
+    port's own."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|naturaldiffusion_tpu"
+                     r"|optax|orbax)(\.|\s|$)", re.M)
     files = list((ROOT / "naturaldiffusion_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "int8_ablation.py"]
     assert len(files) > 10
