@@ -8,8 +8,8 @@ printed as one line with its numbers and seconds as it ends:
   env      the card (``nvidia-smi`` name and power limit), torch and CUDA.
   build    ``nvcc`` builds the kernels of ``naturaldiffusion_tpu_torch/csrc``;
            prints the registers and spills of every conv3x3.cu,
-           qmatmul.cu, attention.cu, group_norm.cu and weighted_sum.cu
-           kernel and fails if one spills.
+           qmatmul.cu, attention.cu, attention_bwd.cu, group_norm.cu and
+           weighted_sum.cu kernel and fails if one spills.
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes the main path gives it (recorded from one batch-64
            forward), then timed (CUDA events, median, L2 flushed) beside the
@@ -121,6 +121,22 @@ printed as one line with its numbers and seconds as it ends:
            versions on the card, beside two controls.
   dit_validate  ``apps.validate_dit`` at full width (DDIM, 10 steps, f32) on
            the card: direct recursion against NI within its 1e-3 check.
+  parallel      the parallelism slice on the card's 1-rank NCCL mesh: (1)
+           K9's and K10's backward kernel (``csrc/attention_bwd.cu``)
+           against ``attention_backward_reference`` at the DiT-XL/2 train
+           shape, SD3-medium's and the kernel table's lengths and each head
+           dim at a ragged T, f32 and bf16, with 1 %- and 5 %-off controls
+           that must fail; timed beside the plain version, SDPA's flash
+           backward and its bound, forward + backward beside SDPA's; (2)
+           three full-width DiT-XL/2 bf16 train steps at batch 32 under
+           ``dit_tp_sharding`` and the (data, model, -) token constraint,
+           28 K9 and 28 K9-backward calls a step (the phase's main path),
+           step ms, busy share, peak memory; one f32 step's whole-model
+           gradient at batch 4 against the plain attention's, beside a
+           control without dq, with K9 and again with K10 (``splash``);
+           (3) ``parallel.dryrun.dryrun_multichip(1)``.  The ``train``
+           phase also runs the trainer with ``--fsdp`` against the run
+           without it.
   ve_kernels    kernels K4 (halo-tiled conv, serving K5 too) and K6
            (GroupNorm) against their plain versions at every shape one
            batch-4 bf16 forward of the full-width CelebA-HQ 256 VE NCSN++
@@ -202,6 +218,7 @@ import concurrent.futures
 import contextlib
 import copy
 import functools
+import importlib
 import io
 import json
 import math
@@ -865,8 +882,8 @@ def phase_build():
 
 # sources whose every kernel instance the build phase lists and holds to
 # zero spills
-PTXAS_CHECKED = ("conv3x3", "qmatmul", "attention", "group_norm",
-                 "weighted_sum", "conv3x3_int8")
+PTXAS_CHECKED = ("conv3x3", "qmatmul", "attention", "attention_bwd",
+                 "group_norm", "weighted_sum", "conv3x3_int8")
 
 
 def kernel_name(mangled):
@@ -2382,7 +2399,25 @@ def train_app_runs(per_fwd):
             if not (resumed.step == TRAIN_APP_ITERS
                     and max(errs.values()) <= TRAIN_RESUME_TOL):
                 raise AssertionError(f"train app resume: {res[kind]}")
-            del whole, resumed
+            # --fsdp: the state sharded over the 1-rank mesh's data axis
+            from naturaldiffusion_tpu_torch.parallel.shardings import full
+            tf = time.perf_counter()
+            sharded = TA.train(TA.parse(
+                ["--workdir", os.path.join(tmp, f"{kind}_fsdp")] + common
+                + ["--fsdp", "--snapshot-freq", "1000000",
+                   "--no-snapshot-samples"])[0])
+            torch.cuda.synchronize()
+            errs = {name: rel_l2_all([full(t) for t in a], b)
+                    for name, a, b in zip(
+                        ("params", "mu", "nu", "ema"),
+                        train_state_leaves(sharded),
+                        train_state_leaves(whole))}
+            res[kind].update(fsdp_run_s=time.perf_counter() - tf,
+                             fsdp_vs_whole_rel_l2=errs)
+            if not (sharded.step == TRAIN_APP_ITERS
+                    and max(errs.values()) <= TRAIN_RESUME_TOL):
+                raise AssertionError(f"train app --fsdp: {res[kind]}")
+            del whole, resumed, sharded
             torch.cuda.empty_cache()
     if "start step 2" not in log.getvalue():
         raise AssertionError("train app: the resumed run did not start at "
@@ -3532,6 +3567,394 @@ def phase_dit_slice(model32, smi):
           reading_w8_bf16_rel_l2=err_w8,
           latent_abs_max=float(want.abs().max()))
     return runs
+
+# the parallel phase (PR 20).  (1) K9's and K10's backward kernel
+# (csrc/attention_bwd.cu) against attention_backward_reference on the same
+# inputs, dq, dk and dv each by relative L2: f32 at BWD_F32_TOL (f32 sums
+# in other orders, ~1e-6); bf16 at BWD_BF16_TOL beside the control of a
+# plain version that rounds p and dS to bf16 where the kernel does (sound
+# runs of the kernel read 2.4e-3, PR 20); a copy of the reference 1 % off
+# must fail the f32 limit and one 5 % off the bf16 limit.  The shapes:
+# DiT-XL/2's train step [32, 16, 256, 72] as the model's strided views,
+# SD3-medium's joint length and the kernel table's, each head dim at a
+# ragged T (201).  Timed (CUDA events, L2 flushed) in bf16 beside the
+# plain version, SDPA's flash backward (the library call) and its bound;
+# forward + backward beside SDPA's.
+BWD_F32_TOL, BWD_BF16_TOL = 1e-4, 2e-2
+BWD_SHAPES = ((32, 16, 256, 72), (SD3_B, SD3_H, SD3_LAT + 333, SD3_D),
+              (SD3_B, SD3_H, SD3_LAT + SD3_CTX, SD3_D),
+              (2, 3, 201, 16), (2, 3, 201, 32), (2, 3, 201, 64),
+              (2, 3, 201, 72))
+BWD_TIMED = BWD_SHAPES[:3]
+# (2) the DiT-XL/2 train step at full width and depth (hidden 1152, depth
+# 28, 16 heads of 72, patch 2, 32 x 32 x 4 latents; learn_sigma False and
+# no label dropout, the dry run's config) on make_mesh's 1-rank NCCL mesh
+# under dit_tp_sharding and the (data, model, -) token constraint, bf16
+# mixed precision at the DiT release's per-GPU batch (256 over 8 GPUs):
+# PAR_STEPS steps, each loss finite, K9 and its backward PAR_DEPTH calls a
+# step each.  One f32 step's whole-model gradient at PAR_CHECK_BATCH
+# against the same step through attention's plain version (autograd of
+# mha_reference), relative L2 at PAR_GRAD_TOL (f32 sums in other orders
+# through 28 blocks), beside a control whose backward drops dq; the same
+# with attn_backend="splash" (K10 and its backward)
+PAR_BATCH, PAR_STEPS, PAR_CHECK_BATCH, PAR_DEPTH = 32, 3, 4, 28
+PAR_GRAD_TOL = 1e-4
+
+
+def bwd_plain_bf16(torch, q, k, v, o, do, lse, scale):
+    """The plain backward with p and dS rounded to bf16 where the kernel
+    rounds them (the bf16 rows' control)."""
+    f32, bf = torch.float32, torch.bfloat16
+    qf, kf, vf, of, dof = (a.to(f32) for a in (q, k, v, o, do))
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale
+                  - lse[..., None])
+    dv = torch.matmul(p.to(bf).to(f32).transpose(-1, -2), dof)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2))
+              - (dof * of).sum(-1, keepdim=True))
+    ds = ds.to(bf).to(f32)
+    return (torch.matmul(ds, kf) * scale,
+            torch.matmul(ds.transpose(-1, -2), qf) * scale, dv)
+
+
+def rel_l2_dev(a, b):
+    """``rel_l2`` on the card, in float64 (the gradients at SD3's length
+    are 14 M elements each: host copies would cost seconds)."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def bwd_cost(b, h, t, d, itemsize):
+    """FLOPs (5 products of 2 B H T^2 D), bytes (q, k, v, o, do read, dq,
+    dk, dv written, lse read), the bound in ms and what bounds it."""
+    flops = 5 * 2.0 * b * h * t * t * d
+    nbytes = 8.0 * b * h * t * d * itemsize + 4.0 * b * h * t
+    tf, tb = flops / PEAK_FLOPS["torch.bfloat16"], nbytes / HBM_BYTES_PER_S
+    return flops, nbytes, max(tf, tb) * 1e3, ("operations" if tf >= tb
+                                              else "bytes")
+
+
+def bwd_inputs(torch, shape, dtype, gen):
+    """q, k, v as the DiT's strided views of one [B, T, 3, H, D] tensor, do
+    a [B, H, T, D] view of [B, T, H, D] (what the model's backward hands
+    the kernel)."""
+    b, h, t, d = shape
+    qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda").to(dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    do = torch.randn((b, t, h, d), generator=gen, device="cuda").to(
+        dtype).transpose(1, 2)
+    return q, k, v, do
+
+
+def bwd_rows(torch, A, timer, gen):
+    """(1): every shape and type of BWD_SHAPES; returns (rows, timings)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    rows, timed = [], {}
+    for shape in BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = bwd_inputs(torch, shape, dtype, gen)
+            scale = 1.0 / math.sqrt(shape[-1])
+            o, lse = A._launch(q, k, v, scale, True, "flash_attention")
+            got = A.flash_attention_backward(q, k, v, o, do, lse, scale)
+            want = A.attention_backward_reference(
+                *(a.float() for a in (q, k, v, o, do)), lse, scale)
+            errs = [rel_l2_dev(g, w) for g, w in zip(got, want)]
+            f32 = dtype == torch.float32
+            tol = BWD_F32_TOL if f32 else BWD_BF16_TOL
+            off = 1.01 if f32 else 1.05
+            control = max(rel_l2_dev(w * off, w) for w in want)
+            abs_err = max(float((g.float() - w).abs().max())
+                          for g, w in zip(got, want))
+            plain16 = (None if f32 else max(rel_l2_dev(p, w) for p, w in zip(
+                bwd_plain_bf16(torch, q, k, v, o, do, lse, scale), want)))
+            del got, want
+            if max(errs) > tol or control <= tol:
+                raise AssertionError(f"K9 backward {shape} {dtype}: rel L2 "
+                                     f"{errs} (limit {tol:g}), control "
+                                     f"{control:.2e}")
+            row = dict(shape=list(shape), dtype=str(dtype),
+                       rel_l2_dq_dk_dv=errs, tol=tol,
+                       control_off_rel_l2=control,
+                       plain_bf16_control_rel_l2=plain16,
+                       max_abs_err=abs_err)
+            # K10's backward: the same kernel at scale 1 on pre-scaled q
+            if shape[2] == SD3_LAT + 333:
+                qs = A.prescale(q, scale)
+                o10, lse10 = A._launch(qs, k, v, None, True, "splash")
+                got10 = A.splash_attention_backward(qs, k, v, o10, do, lse10)
+                want10 = A.attention_backward_reference(
+                    *(a.float() for a in (qs, k, v, o10, do)), lse10, 1.0)
+                e10 = [rel_l2_dev(g, w) for g, w in zip(got10, want10)]
+                if max(e10) > tol:
+                    raise AssertionError(f"K10 backward {shape} {dtype}: "
+                                         f"{e10} over {tol:g}")
+                row["splash_rel_l2_dq_dk_dv"] = e10
+                row["splash_max_abs_err"] = max(
+                    float((g.float() - w).abs().max())
+                    for g, w in zip(got10, want10))
+                del got10, want10
+            rows.append(row)
+            if shape in BWD_TIMED and not f32:
+                flops, nbytes, bound, by = bwd_cost(*shape, 2)
+                qg, kg, vg = (a.detach().requires_grad_() for a in (q, k, v))
+                with sdpa_kernel(SDPBackend.FLASH_ATTENTION), \
+                        torch.enable_grad():
+                    so = F.scaled_dot_product_attention(qg, kg, vg)
+                    lib_ms = timer(lambda: torch.autograd.grad(
+                        so, (qg, kg, vg), do, retain_graph=True))
+
+                    def sdpa_fb():
+                        out = F.scaled_dot_product_attention(qg, kg, vg)
+                        torch.autograd.grad(out, (qg, kg, vg), do)
+
+                    def k9_fb():
+                        out = A.flash_attention(qg, kg, vg, scale)
+                        torch.autograd.grad(out, (qg, kg, vg), do)
+                    lib_fb = timer(sdpa_fb)
+                    k9_fb_ms = timer(k9_fb)
+                timed[str(list(shape))] = dict(
+                    ms=timer(lambda: A.flash_attention_backward(
+                        q, k, v, o, do, lse, scale)),
+                    splash_ms=(timer(lambda: A.splash_attention_backward(
+                        qs, k, v, o10, do, lse10))
+                        if shape[2] == SD3_LAT + 333 else None),
+                    plain_ms=timer(lambda: A.attention_backward_reference(
+                        q, k, v, o, do, lse, scale)),
+                    library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                    flops=flops, bytes=nbytes,
+                    fwd_bwd_ms=k9_fb_ms, library_fwd_bwd_ms=lib_fb)
+                del so, qg, kg, vg
+            del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return rows, timed
+
+
+def par_model(torch, cfg_kw, mesh, tok):
+    """The full-width DiT-XL/2 of (2), every weight random, its parameters
+    placed by dit_tp_sharding."""
+    from naturaldiffusion_tpu_torch.models.dit import DiT, DiTConfig
+    from naturaldiffusion_tpu_torch.parallel import dit_tp_sharding
+    from naturaldiffusion_tpu_torch.parallel.shardings import apply_shardings
+    model = randomize_dit_(DiT(DiTConfig(**cfg_kw), device="cuda",
+                               token_constraint=tok), SEED + 70)
+    return apply_shardings(model, dit_tp_sharding(model, mesh))
+
+
+def par_apply(torch, model):
+    def apply_fn(p, x, t_label):
+        y = torch.arange(x.shape[0], device=x.device) % 1000
+        return torch.func.functional_call(model, p, (x, t_label, y))
+    return apply_fn
+
+
+def par_grads(torch, model, batch, t, z):
+    """The whole-model gradient of the DSM loss at the draws, as plain
+    tensors (the 1-rank mesh's local shards are whole)."""
+    from naturaldiffusion_tpu_torch.parallel.shardings import full
+    from naturaldiffusion_tpu_torch.sde import VPSDE
+    from naturaldiffusion_tpu_torch.train.losses import sde_loss_given
+    from naturaldiffusion_tpu_torch.parallel.mesh import implicit_replication
+    params = dict(model.named_parameters())
+    with torch.enable_grad(), implicit_replication():
+        loss = full(sde_loss_given(VPSDE(), par_apply(torch, model), params,
+                                   batch, t, z))
+        grads = torch.autograd.grad(loss, list(params.values()))
+    return [full(g).detach() for g in grads]
+
+
+@contextlib.contextmanager
+def dq_dropped(A, name):
+    """The backward ``name`` of ``ops.attention`` with its dq zeroed (the
+    gradient checks' control)."""
+    saved = getattr(A, name)
+
+    def dropped(*args):
+        dq, dk, dv = saved(*args)
+        return dq * 0, dk, dv
+    dropped.launches = 0            # the wrapper counts on the module's name
+    setattr(A, name, dropped)
+    try:
+        yield
+    finally:
+        setattr(A, name, saved)
+
+
+def par_check_draws(torch, model):
+    """(2)'s gradient check's batch and draws, batch-sharded."""
+    from naturaldiffusion_tpu_torch.parallel import shard_batch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    b = PAR_CHECK_BATCH
+    batch = torch.randn((b, 32, 32, 4), generator=gen, device="cuda")
+    t = torch.rand(b, generator=gen, device="cuda") * 0.9 + 0.05
+    z = torch.randn((b, 32, 32, 4), generator=gen, device="cuda")
+    return shard_batch(model.token_constraint.mesh, (batch, t, z))
+
+
+def par_plain_grads(torch, A, model, draws):
+    """The gradient through attention's plain version (autograd of
+    ``mha_reference``), both backends' reference."""
+    saved = A.flash_attention, A.splash_attention
+    A.flash_attention = A.splash_attention = A.mha_reference
+    try:
+        return par_grads(torch, model, *draws)
+    finally:
+        A.flash_attention, A.splash_attention = saved
+
+
+def par_grad_check(torch, A, model, backend, draws, want):
+    """(2)'s gradient check under ``backend`` (K9 "flash" or K10 "splash"):
+    the kernels' gradient against the plain attention's ``want``, and the
+    control without dq."""
+    for blk in model.blocks:
+        blk.attn.attn_backend = backend
+    try:
+        got = par_grads(torch, model, *draws)
+        bwd = ("splash_attention_backward" if backend == "splash"
+               else "flash_attention_backward")
+        with dq_dropped(A, bwd):
+            control = par_grads(torch, model, *draws)
+    finally:
+        for blk in model.blocks:
+            blk.attn.attn_backend = "auto"
+    err, ctl = rel_l2_all(got, want), rel_l2_all(control, want)
+    if not err <= PAR_GRAD_TOL < ctl:
+        raise AssertionError(f"DiT-XL/2 {backend} gradient rel L2 {err:.2e} "
+                             f"(limit {PAR_GRAD_TOL:g}), control without dq "
+                             f"{ctl:.2e}")
+    return dict(rel_l2=err, control_no_dq_rel_l2=ctl, tol=PAR_GRAD_TOL)
+
+
+def par_train_steps(torch, A, model, smi):
+    """(2)'s bf16 steps: returns (numbers, launches of the main path)."""
+    from naturaldiffusion_tpu_torch.parallel import shard_batch
+    from naturaldiffusion_tpu_torch.sde import VPSDE
+    from naturaldiffusion_tpu_torch.train import make_train_step
+    mesh = model.token_constraint.mesh
+    init_fn, step_fn = make_train_step(VPSDE(), par_apply(torch, model),
+                                       compute_dtype=torch.bfloat16)
+    state = init_fn(dict(model.named_parameters()))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
+    batch = shard_batch(mesh, torch.randn((PAR_BATCH, 32, 32, 4),
+                                          generator=gen, device="cuda"))
+    counters = {"flash_attention": A.flash_attention,
+                "flash_attention_backward": A.flash_attention_backward}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    losses, ms, out = [], [], [None]
+
+    def step(i):
+        st, loss = step_fn(out[0] or state, torch.Generator(
+            device="cuda").manual_seed(SEED + 80 + i), batch)
+        out[0] = st
+        losses.append(float(loss))
+    for i in range(PAR_STEPS - 1):
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        step(i)
+        ms.append((time.perf_counter() - tw) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the last step under the profiler (its wall is the profiler's)
+    prof = profiled(torch, lambda: step(PAR_STEPS - 1))
+    launches = read_counts(counters)
+    want = {k: PAR_STEPS * PAR_DEPTH for k in counters}
+    if launches != want or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"DiT-XL/2 train steps: losses {losses}, "
+                             f"launches {launches} != {want}")
+    del state, out
+    return dict(losses=losses, step_ms=ms, steady_step_ms=ms[-1],
+                img_per_s=PAR_BATCH / ms[-1] * 1e3,
+                profiled_step_wall_ms=prof["wall_ms"],
+                peak_memory_gib=peak, busy_share=prof["busy_share"],
+                device_ms=prof["device_ms"], top=prof["top"],
+                calls_per_step={k: v // PAR_STEPS
+                                for k, v in launches.items()},
+                card=smi), launches
+
+
+def phase_parallel(smi, details):
+    """The parallelism slice (see the constants): (1) the backward kernel's
+    rows, (2) the DiT-XL/2 train step on the mesh (its launches are the
+    phase's main path), its gradient checks, (3) ``dryrun_multichip(1)``
+    on the card.  Returns (kernel rows, launches by path)."""
+    import torch
+    from naturaldiffusion_tpu_torch.ops import attention as A
+    from naturaldiffusion_tpu_torch.parallel import make_mesh, named
+    from naturaldiffusion_tpu_torch.parallel.dryrun import dryrun_multichip
+    t0 = time.perf_counter()
+    parts = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    timer = Timer(torch, reps=5)
+    rows, timed = bwd_rows(torch, A, timer, gen)
+    del timer
+    torch.cuda.empty_cache()
+    parts["backward_rows"] = time.perf_counter() - t0
+    tp = time.perf_counter()
+    mesh = make_mesh({"data": 1, "model": 1}, device="cuda")
+    cfg_kw = dict(input_size=32, patch_size=2, in_channels=4,
+                  hidden_size=1152, depth=PAR_DEPTH, num_heads=16,
+                  learn_sigma=False, class_dropout_prob=0.0)
+    model = par_model(torch, cfg_kw, mesh, named(mesh, "data", "model",
+                                                 None))
+    with torch.enable_grad():
+        step, launches = par_train_steps(torch, A, model, smi)
+    parts["train_steps"] = time.perf_counter() - tp
+    tp = time.perf_counter()
+    with torch.enable_grad():
+        counters = {"splash_attention": A.splash_attention,
+                    "splash_attention_backward": A.splash_attention_backward}
+        draws = par_check_draws(torch, model)
+        want = par_plain_grads(torch, A, model, draws)
+        grad_k9 = par_grad_check(torch, A, model, "flash", draws, want)
+        zero_counts(counters)
+        grad_k10 = par_grad_check(torch, A, model, "splash", draws, want)
+        del want
+    splash_launches = read_counts(counters)
+    del model
+    torch.cuda.empty_cache()
+    parts["gradient_checks"] = time.perf_counter() - tp
+    tp = time.perf_counter()
+    with torch.enable_grad():
+        dry = dryrun_multichip(1, device="cuda")
+    parts["dryrun_multichip"] = time.perf_counter() - tp
+    worst = {d: max(max(r["rel_l2_dq_dk_dv"]) for r in rows
+                    if r["dtype"] == d) for d in ("torch.float32",
+                                                  "torch.bfloat16")}
+    phase("parallel", t0, card=smi, backward_rows=len(rows),
+          backward_worst_rel_l2=worst, backward_timed=timed,
+          dit_xl2_train=step, grad_check_k9=grad_k9,
+          grad_check_k10=grad_k10, splash_launches=splash_launches,
+          dryrun=dry, seconds_by_part=parts)
+    details["parallel"] = dict(backward_rows=rows, timed=timed)
+    main = timed[str(list(BWD_TIMED[0]))]
+    sd3 = timed[str(list(BWD_TIMED[1]))]
+    err9 = max(r["max_abs_err"] for r in rows)
+    err10 = max(r["splash_max_abs_err"] for r in rows
+                if "splash_max_abs_err" in r)
+    kern = [dict(name="flash_attention_backward", route="cuda",
+                 source="naturaldiffusion_tpu_torch/csrc/attention_bwd.cu",
+                 replaces="jax/experimental/pallas/ops/tpu/flash_attention.py"
+                          ":254",
+                 max_abs_err=err9, ms=main["ms"], plain_ms=main["plain_ms"],
+                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                 library_ms=main["library_ms"],
+                 sd3_length={f: sd3[f] for f in (
+                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                     "fwd_bwd_ms", "library_fwd_bwd_ms")},
+                 fwd_bwd_ms=main["fwd_bwd_ms"],
+                 library_fwd_bwd_ms=main["library_fwd_bwd_ms"],
+                 note="shape [32, 16, 256, 72] bf16, the DiT-XL/2 train "
+                      "step's; launches count calls (each is the delta "
+                      "pre-pass, the dk/dv and the dq kernels)"),
+            dict(name="splash_attention_backward", route="cuda",
+                 source="naturaldiffusion_tpu_torch/csrc/attention_bwd.cu",
+                 replaces="jax/experimental/pallas/ops/tpu/splash_attention/"
+                          "splash_attention_kernel.py:2241",
+                 max_abs_err=err10, ms=sd3["splash_ms"],
+                 plain_ms=sd3["plain_ms"], bound_ms=sd3["bound_ms"],
+                 bound_by=sd3["bound_by"], library_ms=sd3["library_ms"],
+                 note=f"shape {list(BWD_TIMED[1])} bf16 (SD3-medium's joint "
+                      f"length), pre-scaled q, the kernel at scale 1")]
+    return kern, {"parallel": launches, "parallel_splash": splash_launches}
 
 
 def phase_dit_validate():
@@ -5143,9 +5566,12 @@ def main(argv=None) -> int:
     # the port bench's FLOPs and tool_trace's count, on the CPU, and the
     # profiler's first session (seconds of set-up), while the kernels build
     from naturaldiffusion_tpu_torch.utils.flops import flops_via_cpu_subprocess
-    pool = concurrent.futures.ThreadPoolExecutor(3)
+    pool = concurrent.futures.ThreadPoolExecutor(4)
     counting = pool.submit(flops_via_cpu_subprocess,
                            "naturaldiffusion_tpu_torch.apps.bench", [])
+    # DTensor's package (seconds of import on this host), which the meshes
+    # of the train, eval and parallel phases load
+    pool.submit(importlib.import_module, "torch.distributed.tensor")
     dit_count = pool.submit(flops_via_cpu_subprocess, TOOL_TRACE_COUNT[0],
                             list(TOOL_TRACE_COUNT[1]))
     building = pool.submit(phase_build)
@@ -5196,6 +5622,8 @@ def main(argv=None) -> int:
     dit_runs = phase_dit_slice(dit32, smi)
     del dit32
     phase_dit_validate()
+    par_kernels, par_launches = phase_parallel(smi, details)
+    kernels += par_kernels
 
     ve_cfg, ve32 = ve_model(SEED + 20)
     ve16 = copy.deepcopy(ve32).to(device="cuda", dtype=torch.bfloat16)
@@ -5244,7 +5672,7 @@ def main(argv=None) -> int:
                "eval": eval_launches,
                "train": train_launches,
                "attention_bench": attn_launches,
-               "fused_act": k8_launches}
+               "fused_act": k8_launches, **par_launches}
     # each kernel's count from the path that exercises it: K1-K3 the
     # CIFAR slice, K9 the DiT slice, K7 the DiT slice under w8 (each also
     # on the SD3 slice, launches_by_path), K4 (serving
@@ -5260,6 +5688,10 @@ def main(argv=None) -> int:
                  "conv3x3_tiledew": ("ve_slice", "conv3x3_tiled"),
                  "group_norm": ("ve_slice", "fused_group_norm"),
                  "splash_attention": ("attention_bench", "splash_attention"),
+                 "flash_attention_backward": ("parallel",
+                                              "flash_attention_backward"),
+                 "splash_attention_backward": ("parallel_splash",
+                                               "splash_attention_backward"),
                  "fused_leaky_relu": ("fused_act", "fused_leaky_relu_pallas")}
     for k in kernels:
         path, fn = main_path[k["name"]]
@@ -5277,7 +5709,8 @@ def main(argv=None) -> int:
             "launches_by_path")
     extras = ("also_replaces", "served_by", "head_dims_checked",
               "bench_trace_launches", "library_int_mm_ms", "ms_dynamic",
-              "lse_max_abs_err", "sd3_length", "note")
+              "lse_max_abs_err", "sd3_length", "fwd_bwd_ms",
+              "library_fwd_bwd_ms", "note")
     kernels = [dict({k: kern[k] for k in keys},
                     **{k: kern[k] for k in extras if k in kern})
                for kern in kernels]

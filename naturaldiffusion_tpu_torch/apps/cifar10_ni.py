@@ -17,6 +17,11 @@ provenance beside it: ``inception=converted`` from ``--inception
 pt_inception-2015-12-05.pth``, else ``inception=random`` (random weights:
 the pipeline, not a real FID; the repository holds no such file).
 
+Sampling is data-parallel over ``parallel.make_mesh()`` (every rank of
+the process group; one rank without a group): each batch is padded up to a
+multiple of the ranks, every rank samples its rows, and the samples are
+gathered (JAX ``apps/cifar10_ni.py:179-196``).
+
 Run: ``python -m naturaldiffusion_tpu_torch.apps.cifar10_ni --num 256``.
 """
 
@@ -31,6 +36,7 @@ import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..coeffs import registry
 from ..coeffs.matrix import CoeffMatrix
@@ -38,10 +44,13 @@ from ..device import resolve_device
 from ..engine import NISchedule, natural_inference
 from ..engine.graph import GraphedNI
 from ..models.ncsnpp import CIFAR10_DDPMPP_CONTINUOUS, NCSNpp
+from ..parallel.mesh import (axis_index, axis_size, batch_sharding,
+                             fold_in_shard, make_mesh, shard_batch)
 
 
 def make_sampler(model, matrix: CoeffMatrix, *, micro: int = 64,
-                 dtype=torch.bfloat16, device="cuda", graph: bool = False):
+                 dtype=torch.bfloat16, device="cuda", graph: bool = False,
+                 mesh=None, data_axis: str = "data"):
     """``run(init, noises=None, generator=None) -> samples`` (float32).
 
     A copy of ``model`` in ``dtype`` on ``device`` predicts eps; the engine
@@ -58,7 +67,17 @@ def make_sampler(model, matrix: CoeffMatrix, *, micro: int = 64,
     graph of the NI run over ``micro`` images (:class:`..engine.graph.
     GraphedNI`), captured at the first call and kept in ``run.graphed``;
     B must then be a multiple of ``micro``.  A replay reads the weights the
-    copy holds at that time."""
+    copy holds at that time.
+
+    ``mesh`` (DP sampling, JAX ``apps/cifar10_ni.py:45-135``): ``init`` is
+    a batch-sharded DTensor (``parallel.shard_batch``) or the global batch,
+    the same on every rank; each rank samples its own rows, and the output
+    is the batch-sharded DTensor of the samples.  Chunking is
+    device-aligned: chunk c takes ``micro / shards`` rows of every rank's
+    local batch, so nothing moves between ranks (no collective in the
+    run).  ``noises`` are the global ones (each rank takes its rows);
+    ``generator`` draws this rank's (give each rank its own, e.g.
+    ``parallel.fold_in_shard``)."""
     dev = resolve_device(device)
     if graph and (dev.type != "cuda" or not micro):
         raise ValueError("graph=True needs a CUDA device and micro > 0")
@@ -79,8 +98,7 @@ def make_sampler(model, matrix: CoeffMatrix, *, micro: int = 64,
             g.noises.copy_(noises)
         return g.replay().clone()
 
-    @torch.no_grad()
-    def run(init, noises=None, generator=None):
+    def chunked(init, noises, generator, micro):
         bb = init.shape[0]
         if graph and bb % micro:
             raise ValueError(f"a graphed sampler takes multiples of "
@@ -97,6 +115,29 @@ def make_sampler(model, matrix: CoeffMatrix, *, micro: int = 64,
                 generator=generator, prediction_type="eps",
                 model_dtype=dtype))
         return torch.cat(outs)
+
+    @torch.no_grad()
+    def run(init, noises=None, generator=None):
+        if mesh is None:
+            return chunked(init, noises, generator, micro)
+        shards = axis_size(mesh, data_axis)
+        if isinstance(init, DTensor):
+            loc, bb = init.to_local(), init.shape[0]
+        else:
+            bb = init.shape[0]
+            if bb % shards:
+                raise ValueError(f"batch {bb} is not a multiple of the "
+                                 f"{shards} ranks of {data_axis!r}")
+            loc = init.chunk(shards)[axis_index(mesh, data_axis)]
+        if noises is not None:
+            r = axis_index(mesh, data_axis) * loc.shape[0]
+            noises = noises[:, r:r + loc.shape[0]]
+        # device-aligned chunks: micro / shards local rows each
+        ml = (micro // shards if micro and bb % micro == 0 and bb > micro
+              and micro % shards == 0 else 0)
+        out = chunked(loc, noises, generator, ml)
+        return DTensor.from_local(out, mesh, batch_sharding(
+            mesh, out.dim(), data_axis).placements, run_check=False)
 
     def with_params(state):
         net.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
@@ -136,8 +177,14 @@ def main(argv=None) -> int:
         from ..models.convert import fill_from_torch, load_torch_checkpoint
         unused = fill_from_torch(model, load_torch_checkpoint(args.ckpt))
         print(f"loaded {args.ckpt} ({len(unused)} unused torch keys)")
-    run = make_sampler(model, matrix, micro=args.micro, device=dev)
+    mesh = make_mesh(device=dev)
+    ndev = mesh.size()
+    run = make_sampler(model, matrix, micro=args.micro, device=dev,
+                       mesh=mesh)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    # the injected noises: each rank draws its own rows' stream
+    noise_gen = gen if ndev == 1 else fold_in_shard(args.seed, mesh,
+                                                    device=dev)
 
     def sync():
         if dev.type == "cuda":
@@ -148,8 +195,12 @@ def main(argv=None) -> int:
     images = []
     while done < args.num:
         b = min(args.batch, args.num - done)
-        init = torch.randn((b, 32, 32, 3), generator=gen, device=dev)
-        out = run(init, generator=gen)
+        # the tail batch padded to a multiple of the ranks, so that every
+        # batch is sharded; the padded rows are dropped below
+        pad = -b % ndev
+        init = torch.randn((b + pad, 32, 32, 3), generator=gen, device=dev)
+        out = run(shard_batch(mesh, init), generator=noise_gen)
+        out = out.full_tensor()[:b]
         sync()
         if not torch.isfinite(out).all():
             raise FloatingPointError("non-finite samples")

@@ -47,6 +47,7 @@ from ..device import resolve_device
 from ..eval.fid import (activations, compute_statistics, frechet_distance,
                         inception_score)
 from ..models.ncsnpp import CIFAR10_DDPMPP_CONTINUOUS, NCSNpp, NCSNppConfig
+from ..parallel import fold_in_shard, make_mesh, shard_batch
 from .cifar10_ni import make_sampler
 
 TOY = NCSNppConfig(nf=16, ch_mult=(1, 2), num_res_blocks=1,
@@ -58,10 +59,12 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def sample_images(args, dev, model=None):
+def sample_images(args, dev, model=None, mesh=None):
     """NI-sample ``args.num`` images on ``dev``; returns (images ``[num, 32,
     32, 3]`` on ``dev``, steady img/s, wall s).  ``model``: the NCSN++ to
-    sample (default: a new one from seed 0, filled from ``--ckpt``)."""
+    sample (default: a new one from seed 0, filled from ``--ckpt``).
+    ``mesh``: data-parallel sampling, every batch padded to a multiple of
+    the ranks (JAX ``apps/fid_selfcheck.py:45-77``)."""
     matrix = (CoeffMatrix.load(args.weights) if args.weights
               else registry.derive("ddpm", args.steps))
     if model is None:
@@ -70,21 +73,28 @@ def sample_images(args, dev, model=None):
         if args.ckpt:
             from ..models.convert import fill_from_torch, load_torch_checkpoint
             fill_from_torch(model, load_torch_checkpoint(args.ckpt))
+    ndev = 1 if mesh is None else mesh.size()
     run = make_sampler(model, matrix, micro=args.micro, device=dev,
-                       graph=dev.type == "cuda")
+                       graph=dev.type == "cuda", mesh=mesh)
 
-    # every batch is full (a graph takes one shape); the excess of the
-    # last is dropped
+    # every batch is full (a graph takes one shape) and a multiple of the
+    # ranks; the excess of the last is dropped
+    b = args.batch + (-args.batch % ndev)
     nbatch = -(-args.num // args.batch)
     images = torch.empty((args.num, 32, 32, 3), device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    noise_gen = gen if ndev == 1 else fold_in_shard(args.seed, mesh,
+                                                    device=dev)
     wall0 = time.perf_counter()
     t0 = None
     done = first = 0
     for i in range(nbatch):
-        init = torch.randn((args.batch, 32, 32, 3), generator=gen,
-                           device=dev)
-        out = run(init, generator=gen)
+        init = torch.randn((b, 32, 32, 3), generator=gen, device=dev)
+        if mesh is None:
+            out = run(init, generator=noise_gen)
+        else:
+            out = run(shard_batch(mesh, init),
+                      generator=noise_gen).full_tensor()
         take = min(args.batch, args.num - done)
         images[done:done + take] = out[:take]
         done += take
@@ -139,8 +149,10 @@ def main(argv=None, model=None) -> int:
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"device: {dev} ({name}), weights={prov}", flush=True)
 
+    mesh = make_mesh(device=dev)          # every rank of the process group
+    print(f"mesh: {mesh.size()} rank(s)", flush=True)
     wall_start = time.perf_counter()
-    images, sample_rate, sample_wall = sample_images(args, dev, model)
+    images, sample_rate, sample_wall = sample_images(args, dev, model, mesh)
     if not torch.isfinite(images).all():
         raise FloatingPointError("the sampler produced non-finite pixels")
 
@@ -152,8 +164,9 @@ def main(argv=None, model=None) -> int:
                                     device=dev)
     imgs01 = ((images + 1.0) * 0.5).clamp(0.0, 1.0)
     t0 = time.perf_counter()
+    fmesh = mesh if mesh.size() > 1 else None
     feats = activations(imgs01, feature_fn, batch_size=args.feat_batch,
-                        pad_to_batch=True)
+                        mesh=fmesh, pad_to_batch=True)
     feat_wall = time.perf_counter() - t0
     feat_rate = len(feats) / feat_wall
     print(f"  features {feats.shape} in {feat_wall:.1f}s "
@@ -179,7 +192,7 @@ def main(argv=None, model=None) -> int:
     shifted01 = (imgs01[:half] * 0.7 + 0.25).clamp(0.0, 1.0)
     t0 = time.perf_counter()
     feats_shift = activations(shifted01, feature_fn,
-                              batch_size=args.feat_batch,
+                              batch_size=args.feat_batch, mesh=fmesh,
                               pad_to_batch=True)[:, :2048]
     if args.feat_dim:
         feats_shift = feats_shift[:, :args.feat_dim]

@@ -25,9 +25,10 @@ import numpy as np
 
 
 def compute_dataset_stats(loader, feature_fn, *, batch_size: int = 256,
-                          limit: int | None = None):
+                          limit: int | None = None, mesh=None):
     """The whole dataset in order, no augmentation, through the feature
-    extractor; returns ``(mu, sigma, n)``."""
+    extractor; returns ``(mu, sigma, n)``.  ``mesh``: the features run
+    data-parallel (``eval.fid.activations(mesh=)``)."""
     from ..eval.fid import activations, compute_statistics
 
     n = len(loader) if limit is None else min(limit, len(loader))
@@ -35,7 +36,8 @@ def compute_dataset_stats(loader, feature_fn, *, batch_size: int = 256,
     for start in range(0, n, batch_size):
         images, _ = loader.gather(np.arange(start, min(start + batch_size,
                                                        n)))
-        feats.append(activations(images, feature_fn, batch_size=batch_size))
+        feats.append(activations(images, feature_fn, batch_size=batch_size,
+                                 mesh=mesh))
     mu, sigma = compute_statistics(np.concatenate(feats))
     return mu, sigma, n
 
@@ -57,6 +59,8 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
+    from ..parallel import make_mesh
+    mesh = make_mesh(device=args.device)
     feature_fn = default_feature_fn(args.inception, device=args.device)
     loader = NativeBatchLoader(args.data, label_bytes=args.label_bytes)
     print(f"dataset: {len(loader)} records ({loader.backend} backend)")
@@ -66,7 +70,9 @@ def main(argv=None) -> int:
 
     mu, sigma, n = compute_dataset_stats(loader, feature_fn,
                                          batch_size=args.batch,
-                                         limit=args.limit)
+                                         limit=args.limit,
+                                         mesh=mesh if mesh.size() > 1
+                                         else None)
     prov = "converted" if args.inception else "random"
     np.savez(args.out, mu=mu, sigma=sigma, weights=np.asarray(prov))
     print(f"{args.out}: mu{mu.shape} sigma{sigma.shape} over {n} images "

@@ -45,6 +45,7 @@ from ..device import resolve_device
 from ..eval.fid import activations, compute_statistics, frechet_distance
 from ..eval.inception import default_feature_fn
 from ..models.ncsnpp import NCSNpp, NCSNppConfig
+from ..parallel import fold_in_shard, make_mesh, shard_batch
 from ..sde import VESDE, SubVPSDE, VPSDE
 from ..train import checkpoint as ckpt
 from ..train import make_train_step
@@ -155,8 +156,10 @@ def main(argv=None) -> int:
                        glob.glob(os.path.join(
                            args.workdir, "checkpoints", "checkpoint_*")))
         snaps = [0] + snaps                     # random init = the baseline
+    mesh = make_mesh(device=dev)          # JAX apps/roundtrip.py:157-188
+    ndev = mesh.size()
     run = make_sampler(model, registry.derive("ddpm", args.steps),
-                       micro=args.micro, device=dev)
+                       micro=args.micro, device=dev, mesh=mesh)
 
     rows = []
 
@@ -180,11 +183,16 @@ def main(argv=None) -> int:
                                                state.ema.shadow)))
         run.with_params(weights)
         gen = torch.Generator(device=dev).manual_seed(args.seed)
+        noise_gen = gen if ndev == 1 else fold_in_shard(args.seed, mesh,
+                                                        device=dev)
         images, t0, done, first = [], None, 0, 0
         while done < args.num:
             b = min(args.batch, args.num - done)
-            init = torch.randn((b, 32, 32, 3), generator=gen, device=dev)
-            images.append(run(init, generator=gen).cpu().numpy())
+            pad = -b % ndev     # every batch sharded; the pad dropped
+            init = torch.randn((b + pad, 32, 32, 3), generator=gen,
+                               device=dev)
+            got = run(shard_batch(mesh, init), generator=noise_gen)
+            images.append(got.full_tensor()[:b].cpu().numpy())
             if t0 is None:                      # the first batch warms up
                 t0, first = time.time(), done + b
             done += b
@@ -193,7 +201,8 @@ def main(argv=None) -> int:
         rate = (done - first) / max(wall, 1e-9) if done > first else 0.0
 
         imgs01 = np.clip((images + 1.0) / 2.0, 0.0, 1.0)
-        feats = activations(imgs01, feature_fn, batch_size=args.feat_batch)
+        feats = activations(imgs01, feature_fn, batch_size=args.feat_batch,
+                            mesh=mesh if ndev > 1 else None)
         fid = frechet_distance(*compute_statistics(feats), mu, sigma)
         stats = summary_stats(imgs01)
         row = {"step": s, "features": feat_prov, "weights": "ema",

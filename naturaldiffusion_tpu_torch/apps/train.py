@@ -12,9 +12,16 @@ meta`` and numbered snapshots), EMA sampling snapshots through the PC
 sampler: the reference's ``train()`` loop (``run_lib.py:47-173``).  Runs on
 the card unless ``--device cpu``.
 
-Departures from the JAX driver, each because the port holds one card:
-``--fsdp`` raises until the parallelism slice; ``--donate`` has nothing
-left to do (the step updates the state in place).  Two more keep a resumed
+The step runs on a data mesh (``parallel.make_mesh()``: every rank of the
+process group, one without a group; JAX ``apps/train.py:65``): each rank
+reads the same batch stream and takes its rows, and the gradients are
+averaged over ``data``.  ``--fsdp`` shards the whole train state (params,
+Adam's moments, EMA) over ``data`` by ``parallel.fsdp_sharding`` (JAX
+``:99-106``); checkpoints hold the gathered state, so a run with and one
+without ``--fsdp`` read each other's.
+
+Departures from the JAX driver: ``--donate`` has nothing left to do (the
+step updates the state in place).  Two more keep a resumed
 run equal to an uninterrupted one: the draws of step ``i`` come from a
 generator seeded by ``(seed, i)``, as JAX folds ``i`` into its key, and a
 resumed run skips the ``start`` batches the data stream had yielded (JAX's
@@ -35,6 +42,8 @@ import torch
 from ..data import get_dataset, get_inverse_scaler
 from ..device import resolve_device
 from ..models.ncsnpp import NCSNpp, NCSNppConfig
+from ..parallel import fsdp_sharding, make_mesh
+from ..parallel.shardings import apply_shardings, full
 from ..sde import VESDE, SubVPSDE, VPSDE, get_score_fn
 from ..samplers.pc import get_pc_sampler
 from ..train import checkpoint as ckpt
@@ -91,11 +100,8 @@ def step_generator(dev, seed: int, i: int) -> torch.Generator:
 
 
 def setup(cfg: TrainConfig):
-    """(model, step_fn, state restored from the workdir if it holds one)."""
-    if cfg.fsdp:
-        raise NotImplementedError(
-            "--fsdp shards the state over a mesh: it comes with the "
-            "parallelism slice (ROADMAP.md, Queue A, entry 12)")
+    """(model, step_fn, state restored from the workdir if it holds one;
+    under ``fsdp`` sharded over the mesh's ``data`` axis)."""
     dev = resolve_device(cfg.device)
     if dev.type == "cuda":
         # f32 is the reference's precision: no TF32 in the f32 products
@@ -103,13 +109,18 @@ def setup(cfg: TrainConfig):
         torch.backends.cuda.matmul.allow_tf32 = False
     sde = _SDES[cfg.sde][0]()
     model = build_model(cfg, dev)
+    mesh = make_mesh(device=dev)
     init_fn, step_fn = make_train_step(
         sde, functional_apply(model), lr=cfg.lr, warmup=cfg.warmup,
         grad_clip=cfg.grad_clip,
-        compute_dtype=torch.bfloat16 if cfg.bf16 else None)
+        compute_dtype=torch.bfloat16 if cfg.bf16 else None, mesh=mesh)
     state = init_fn(dict(model.named_parameters()))
     state.ema.decay = cfg.ema_decay
     state = ckpt.restore(cfg.workdir, state)     # preemption resume
+    if cfg.fsdp:
+        # ZeRO-3: params, moments and EMA as shards over `data`; the step
+        # gathers the params and reduce-scatters the gradients
+        state = apply_shardings(state, fsdp_sharding(state, mesh))
     return sde, model, step_fn, state, dev
 
 
@@ -151,8 +162,9 @@ def train(cfg: TrainConfig):
 
 
 def ema_params(model, state) -> dict:
-    """The EMA shadow under the model's parameter names."""
-    return dict(zip(state.params, state.ema.shadow))
+    """The EMA shadow under the model's parameter names (gathered where
+    the state is sharded)."""
+    return {k: full(v) for k, v in zip(state.params, state.ema.shadow)}
 
 
 def sample_snapshot(cfg: TrainConfig, sde, model, state, step_i: int, dev):
@@ -232,7 +244,8 @@ def parse(argv=None) -> tuple[TrainConfig, str]:
                    help="accepted for the JAX driver's command lines; the "
                         "port's step updates the state in place")
     p.add_argument("--fsdp", action="store_true",
-                   help="shard the state over a mesh (not ported: raises)")
+                   help="shard the train state (params, moments, EMA) over "
+                        "the mesh's data axis")
     p.add_argument("--nf", type=int, default=128)
     p.add_argument("--ch-mult", type=lambda s: tuple(
         int(x) for x in s.split(",")), default=(1, 2, 2, 2))

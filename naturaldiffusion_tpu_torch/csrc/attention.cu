@@ -9,7 +9,9 @@
 //
 // * K9, the Pallas flash-attention kernel reached through `_flash` (the
 //   `jax.experimental.pallas.ops.tpu.flash_attention` kernel): entry
-//   `natdiff_flash_attention`, the scale folded into the exponent.
+//   `natdiff_flash_attention`, the scale folded into the exponent; when a
+//   gradient is needed it also writes the row logsumexp that the backward
+//   (csrc/attention_bwd.cu) reads.
 // * K10, the splash kernel reached through `_splash` and `mha_joint` (the
 //   `...ops.tpu.splash_attention` kernel): entry `natdiff_splash_attention`.
 //   Splash takes q already multiplied by the scale, so the exponent scale is
@@ -658,16 +660,19 @@ const char* natdiff_error_string(int err) {
 // dtype: 0 = float32, 1 = bfloat16; d: 16, 32, 64 or 72.  q, k, v share the
 // element strides s_b, s_h, s_t (batch, head, token; the head dim is
 // contiguous), o has its own; every row start is 16-byte aligned (checked
-// by the Python wrapper).  scale_log2 = sm_scale * log2(e).  warps,
-// stages, smem: the plan of ops/attention.py:_attn_plan.
+// by the Python wrapper).  scale_log2 = sm_scale * log2(e).  lse: null,
+// or a contiguous f32 [B, H, T] that receives each row's natural-log
+// logsumexp of the scaled scores (what the backward, attention_bwd.cu,
+// reads).  warps, stages, smem: the plan of ops/attention.py:_attn_plan.
 int natdiff_flash_attention(int dtype, int d, const void* q, const void* k,
-                            const void* v, void* o, long long s_b,
+                            const void* v, void* o, float* lse, long long s_b,
                             long long s_h, long long s_t, long long o_b,
                             long long o_h, long long o_t, int B, int H,
                             int Tlen, float scale_log2, int warps, int stages,
                             int smem, void* stream) {
-  const Args a{q, k, v, o, nullptr, s_b, s_h, s_t, o_b, o_h, o_t, B, H, Tlen,
+  const Args a{q, k, v, o, lse, s_b, s_h, s_t, o_b, o_h, o_t, B, H, Tlen,
                scale_log2};
+  if (lse) return dispatch<true>(dtype, d, warps, stages, smem, a, stream);
   return dispatch<false>(dtype, d, warps, stages, smem, a, stream);
 }
 

@@ -52,29 +52,71 @@ def frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> float:
 
 @torch.no_grad()
 def activations(images, feature_fn: Callable, batch_size: int = 256,
-                pad_to_batch: bool = False) -> np.ndarray:
+                mesh=None, pad_to_batch: bool = False,
+                data_axis: str = "data") -> np.ndarray:
     """``[N, H, W, C]`` in [0, 1] (a numpy array or a tensor on any
     device) -> ``[N, D]`` float32 numpy features, ``batch_size`` images a
     call of ``feature_fn``.
+
+    ``mesh`` (JAX ``eval/fid.py:52-70``, the reference's
+    ``run_inception_distributed``): every rank passes the same images; the
+    batch size is rounded to a multiple of the ``data`` axis's ranks, each
+    chunk is edge-padded to such a multiple, each rank takes its own rows
+    through ``feature_fn``, and the features are all-gathered over the
+    axis.
 
     ``pad_to_batch``: repeat the last image to fill the tail chunk up to a
     full ``batch_size``, so that every call has one shape (the features of
     the padding are dropped)."""
     images = torch.as_tensor(images)
+    ndev = 1
+    if mesh is not None:
+        from ..parallel.mesh import axis_size
+        ndev = axis_size(mesh, data_axis)
+        batch_size = max(batch_size // ndev * ndev, ndev)
     if pad_to_batch:
         n = len(images)
         tail = n % batch_size
         if tail:
             last = torch.cat([images[n - tail:], images[-1:].expand(
                 (batch_size - tail,) + tuple(images.shape[1:]))])
-            last = activations(last, feature_fn, batch_size)[:tail]
+            last = activations(last, feature_fn, batch_size,
+                               mesh, data_axis=data_axis)[:tail]
             if n == tail:       # the whole input is smaller than one batch
                 return last
-            head = activations(images[:n - tail], feature_fn, batch_size)
+            head = activations(images[:n - tail], feature_fn, batch_size,
+                               mesh, data_axis=data_axis)
             return np.concatenate([head, last])
-    return np.concatenate([
-        feature_fn(images[i:i + batch_size]).float().cpu().numpy()
-        for i in range(0, len(images), batch_size)])
+    if mesh is None:
+        return np.concatenate([
+            feature_fn(images[i:i + batch_size]).float().cpu().numpy()
+            for i in range(0, len(images), batch_size)])
+    out = []
+    for i in range(0, len(images), batch_size):
+        chunk = images[i:i + batch_size]
+        n = len(chunk)
+        pad = -n % ndev             # edge-repeat up to a multiple
+        if pad:
+            chunk = torch.cat([chunk, chunk[-1:].expand(
+                (pad,) + tuple(chunk.shape[1:]))])
+        out.append(_gathered_features(chunk, feature_fn, mesh,
+                                      data_axis)[:n])
+    return np.concatenate(out)
+
+
+def _gathered_features(chunk, feature_fn, mesh, axis: str) -> np.ndarray:
+    """This rank's rows of ``chunk`` through ``feature_fn``, all-gathered
+    over ``axis`` in rank order."""
+    import torch.distributed as dist
+    from ..parallel.mesh import axis_index, axis_size
+    n = axis_size(mesh, axis)
+    feats = feature_fn(chunk.chunk(n)[axis_index(mesh, axis)]).float()
+    if n > 1:
+        parts = [torch.empty_like(feats) for _ in range(n)]
+        dist.all_gather(parts, feats.contiguous(),
+                        group=mesh.get_group(axis))
+        feats = torch.cat(parts)
+    return feats.cpu().numpy()
 
 
 def inception_score(probs, splits: int = 10) -> tuple[float, float]:

@@ -21,13 +21,28 @@ of input and weights, LayerNorm keeps f32 statistics with flax's
 ``E[x^2] - E[x]^2`` variance, and GELU is the tanh form, all as flax does.
 ``forward(..., train=True)`` drops labels to the null class with
 ``class_dropout_prob`` (JAX ``models/dit.py:243-248``), drawn from an
-explicit generator or the given ``drop`` mask.  ``token_constraint`` and
-``mesh`` are not ported.  ``dit_torch_path_map`` maps the names to a DiT
-release checkpoint's for ``convert.fill_from_torch``.
+explicit generator or the given ``drop`` mask.  ``dit_torch_path_map`` maps
+the names to a DiT release checkpoint's for ``convert.fill_from_torch``.
+
+Sharding (JAX ``models/dit.py:99-117,200-211,260-262``): the parameters may
+be DTensors (``parallel.dit_tp_sharding``, Megatron TP over ``model``) and
+the input a batch-sharded DTensor (``parallel.shard_batch``); the forward
+then runs on DTensors, plain tensors (the position table, the sinusoid's
+frequencies) counting as replicated.  ``token_constraint`` (a
+``parallel.NamedSharding`` of ``[B, T, D]``, e.g. (data, model, -))
+redistributes the tokens at every block boundary (Megatron SP).  Two
+boundaries are explicit: the packed qkv and the 6-way adaLN modulation are
+gathered over their feature dim before they are split (DTensor cannot
+unflatten a column-sharded packed dim), and attention runs on local
+tensors: each rank takes its batch rows and, under TP, its heads
+(``to_local`` / ``from_local``), so kernel K9 never sees a DTensor.
+``attn_backend="ring"`` with ``mesh`` runs ring attention over ``mesh``'s
+``model`` axis (``ops.ring_attention``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -38,6 +53,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops import attention as A
+from ..ops._autograd import is_dtensor
 from ..ops import qmatmul as Q
 from ..ops.quant import quantize_weight
 
@@ -108,8 +124,9 @@ class Dense(nn.Module):
 
     def forward(self, x):
         dt = _promote(x, self.kernel)
-        y = x.to(dt) @ self.kernel.to(dt)
-        return y if self.bias is None else y + self.bias.to(dt)
+        y = tokens_whole(x).to(dt) @ self.kernel.to(dt)
+        return grad_as_forward(y if self.bias is None
+                               else y + self.bias.to(dt))
 
 
 class QDense(Dense):
@@ -153,25 +170,135 @@ class QDense(Dense):
         return super().forward(x)
 
 
+def batch_only(x):
+    """A DTensor redistributed to keep only its batch (dim 0) sharding,
+    every other dim whole on each rank; a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    want = tuple(p if p == Shard(0) else Replicate() for p in x.placements)
+    return x if want == tuple(x.placements) else x.redistribute(
+        x.device_mesh, want)
+
+
+def tokens_whole(x):
+    """A DTensor whose token dim (any dim between the batch and the
+    features) is sharded, gathered over it: the SP -> TP boundary, where
+    the sequence enters a product whole, as XLA gathers it into the TP
+    matmuls.  Anything else as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    mid = [isinstance(p, Shard) and 0 < p.dim < x.dim() - 1
+           for p in x.placements]
+    if not any(mid):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if m else p for p, m in zip(x.placements, mid)])
+
+
+def grad_as_forward(y):
+    """A DTensor whose gradient arrives in its forward placements: the
+    product's backward then flattens a gradient that shards no token dim
+    (DTensor refuses to flatten one that does, e.g. after the residual add
+    of a token-sharded stream).  Anything else as it is."""
+    if not is_dtensor(y):
+        return y
+    from torch.distributed.tensor import DTensor, Replicate
+    # a partial sum's gradient is the whole gradient on every rank
+    grad_pl = [Replicate() if p.is_partial() else p for p in y.placements]
+    return DTensor.from_local(y.to_local(grad_placements=grad_pl),
+                              y.device_mesh, y.placements, run_check=False)
+
+
+def _tp_axis(kernel):
+    """The mesh dim over which a column-parallel kernel ``[in, out]`` is
+    sharded, or None."""
+    if is_dtensor(kernel):
+        from torch.distributed.tensor import Shard
+        for i, p in enumerate(kernel.placements):
+            if p == Shard(1):
+                return i
+    return None
+
+
+def sharded_forward(x):
+    """The context a forward runs in: DTensor's implicit replication of
+    plain tensors when ``x`` is a DTensor."""
+    if not is_dtensor(x):
+        return contextlib.nullcontext()
+    from ..parallel.mesh import implicit_replication
+    return implicit_replication()
+
+
 class Attention(nn.Module):
     """timm-style multi-head attention (qkv bias, no dropout) over kernel
-    K9 (``ops.attention.mha``)."""
+    K9 (``ops.attention.mha``).  ``attn_backend``/``mesh``: as
+    :func:`..ops.attention.mha`'s ``backend``/``mesh``."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, attn_backend: str = "auto",
+                 mesh=None):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_backend = attn_backend
+        self.mesh = mesh
         self.qkv = QDense(dim, 3 * dim)
         self.proj = QDense(dim, dim)
+
+    def _mha(self, q, k, v):
+        return A.mha(q, k, v, backend=self.attn_backend, mesh=self.mesh)
 
     def forward(self, x):
         b, t, d = x.shape
         h = self.num_heads
+        qkv = self.qkv(x)
+        if is_dtensor(qkv):
+            return self.proj(self._local_attention(qkv))
         # reshape(b, t, 3, h, dh) as the JAX package splits it; q, k and v
         # stay strided views, which the kernel reads in place
-        qkv = self.qkv(x).reshape(b, t, 3, h, d // h)
+        qkv = qkv.reshape(b, t, 3, h, d // h)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        y = A.mha(q, k, v)
+        y = self._mha(q, k, v)
         return self.proj(y.transpose(1, 2).reshape(b, t, d))
+
+    def _local_attention(self, qkv):
+        """Attention of a DTensor ``qkv``: gathered over its features and
+        split into q, k, v; then :func:`local_attention`.  Returns the
+        ``[B, T, D]`` DTensor, head-sharded under TP."""
+        if self.attn_backend == "ring":
+            raise NotImplementedError(
+                "attn_backend='ring' runs on replicated parameters and a "
+                "plain input (JAX's ring DiT); the TP-sharded DiT takes K9")
+        b, t, d3 = qkv.shape
+        h, d = self.num_heads, d3 // 3
+        qkv = batch_only(qkv).reshape(b, t, 3, h, d // h)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        y = local_attention(q, k, v, _tp_axis(self.qkv.kernel), self._mha)
+        return y.reshape(b, t, d)
+
+
+def local_attention(q, k, v, tp, attn):
+    """``attn`` on local tensors for ``[B, H, T, dh]`` DTensors q, k, v
+    that shard at most their batch: each rank takes its batch rows and,
+    when ``tp`` names a mesh dim that divides the heads, its own heads of
+    it.  Returns the ``[B, T, H, dh]`` DTensor (heads sharded over ``tp``).
+    Under TP a rank's local gradient holds its own heads only, so the
+    gradient that leaves is a partial sum over ``tp``."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    mesh, placements = q.device_mesh, list(q.placements)
+    h = q.shape[1]
+    if tp is not None and h % mesh.size(tp):
+        tp = None
+    grad_pl = list(placements)
+    if tp is not None:
+        grad_pl[tp] = Partial()
+    q, k, v = (a.to_local(grad_placements=grad_pl) for a in (q, k, v))
+    if tp is not None:
+        n, r = mesh.size(tp), mesh.get_local_rank(tp)
+        q, k, v = (a[:, r * h // n:(r + 1) * h // n] for a in (q, k, v))
+        placements[tp] = Shard(2)           # heads of [B, T, H, dh]
+    y = attn(q, k, v).transpose(1, 2)
+    return DTensor.from_local(y, mesh, placements, run_check=False)
 
 
 class Mlp(nn.Module):
@@ -187,14 +314,16 @@ class Mlp(nn.Module):
 class DiTBlock(nn.Module):
     """adaLN-Zero block (``deps/DiT/models.py:105-126``)."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 attn_backend: str = "auto", mesh=None):
         super().__init__()
         self.adaLN_modulation_1 = Dense(dim, 6 * dim)
-        self.attn = Attention(dim, num_heads)
+        self.attn = Attention(dim, num_heads, attn_backend, mesh)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x, c, mods=None):
         mod = mods if mods is not None else self.adaLN_modulation_1(F.silu(c))
+        mod = batch_only(mod)   # the 6-way split of a column-sharded dim
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = torch.chunk(mod, 6, dim=-1)
         x = x + g_a[:, None, :] * self.attn(
             modulate(layer_norm(x), sh_a, sc_a))
@@ -210,7 +339,7 @@ class FinalLayer(nn.Module):
 
     def forward(self, x, c, mods=None):
         mod = mods if mods is not None else self.adaLN_modulation_1(F.silu(c))
-        shift, scale = torch.chunk(mod, 2, dim=-1)
+        shift, scale = torch.chunk(batch_only(mod), 2, dim=-1)
         return self.linear(modulate(layer_norm(x), shift, scale))
 
 
@@ -272,12 +401,22 @@ class DiT(nn.Module):
     adaLN-Zero modulations and final linear all zero (so the output is 0
     until weights are loaded or perturbed).  ``quant``: ``None`` or
     ``"w8"``, settable later through :meth:`set_quant`.  The module lands
-    on ``device`` (default ``"cuda"``, which raises without a card)."""
+    on ``device`` (default ``"cuda"``, which raises without a card).
+    ``token_constraint``, ``attn_backend``, ``mesh``: the sharding hooks
+    of the module docstring."""
 
     def __init__(self, config: DiTConfig, *, quant: str | None = None,
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0, token_constraint=None,
+                 attn_backend: str = "auto", mesh=None):
         super().__init__()
+        if attn_backend == "ring" and mesh is None:
+            raise ValueError("attn_backend='ring' needs a mesh")
         dev = resolve_device(device)
+        if token_constraint is not None and not hasattr(
+                token_constraint, "constrain"):
+            raise TypeError(f"token_constraint must be a parallel."
+                            f"NamedSharding, got {token_constraint!r}")
+        self.token_constraint = token_constraint
         cfg = self.config = config
         d, p = cfg.hidden_size, cfg.patch_size
         self.x_embedder_proj = PatchEmbed(p, cfg.in_channels, d)
@@ -287,7 +426,7 @@ class DiT(nn.Module):
         self.y_embedder_embedding_table = Embed(n_embed, d)
         for i in range(cfg.depth):
             self.add_module(f"blocks_{i}", DiTBlock(
-                d, cfg.num_heads, cfg.mlp_ratio))
+                d, cfg.num_heads, cfg.mlp_ratio, attn_backend, mesh))
         self.final_layer = FinalLayer(d, p, cfg.out_channels)
         grid = cfg.input_size // p
         self.register_buffer("pos_embed", torch.from_numpy(
@@ -339,6 +478,10 @@ class DiT(nn.Module):
         label becomes the null class ``num_classes`` where ``drop`` (a [B]
         bool mask) holds, or where a uniform draw from ``generator`` falls
         below the probability."""
+        with sharded_forward(x):
+            return self._forward(x, t, y, mods, train, generator, drop)
+
+    def _forward(self, x, t, y, mods, train, generator, drop):
         cfg = self.config
         if train and cfg.class_dropout_prob > 0 and mods is None:
             if drop is None:
@@ -356,10 +499,13 @@ class DiT(nn.Module):
             c = (self.time_embedding(t)
                  + self.y_embedder_embedding_table(y)).to(tok.dtype)
         for i, blk in enumerate(self.blocks):
+            if self.token_constraint is not None:
+                tok = self.token_constraint.constrain(tok)
             tok = blk(tok, c, mods=None if mods is None else mods["blocks"][i])
         tok = self.final_layer(tok, c,
                                mods=None if mods is None else mods["final"])
-        out = tok.reshape(b, hh // p, ww // p, p, p, cfg.out_channels)
+        out = batch_only(tok).reshape(b, hh // p, ww // p, p, p,
+                                      cfg.out_channels)
         return out.transpose(2, 3).reshape(b, hh, ww, cfg.out_channels)
 
 

@@ -22,7 +22,7 @@ The dense layers, LayerNorm and GELU are those of :mod:`.dit`.
 The per-token LayerNorm of the two streams is computed per stream: the
 JAX package's ``NATDIFF_MMDIT_FUSED_LN`` (one LayerNorm over the
 concatenation, the same values) is not carried over.  ``token_constraint``
-(JAX's sharding hook between blocks) is refused until the parallelism slice.
+is JAX's sharding hook between blocks (see :class:`MMDiT`).
 """
 
 from __future__ import annotations
@@ -37,7 +37,9 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops import attention as A
-from .dit import (QUANT_MODES, Dense, PatchEmbed, QDense, layer_norm,
+from ..ops._autograd import is_dtensor
+from .dit import (QUANT_MODES, Dense, PatchEmbed, QDense, _tp_axis,
+                  batch_only, layer_norm, local_attention, sharded_forward,
                   modulate, timestep_embedding)
 
 
@@ -171,7 +173,8 @@ class JointBlock(nn.Module):
         ``norm`` under ``qk_norm``, cast back to the activations' type, or
         its float32 scale would promote the attention to float32)."""
         b, t, d = v.shape
-        y = getattr(self, proj)(v).reshape(b, t, self.num_heads, -1)
+        y = batch_only(getattr(self, proj)(v)).reshape(b, t, self.num_heads,
+                                                       -1)
         if self.qk_norm and norm is not None:
             y = getattr(self, norm)(y).to(y.dtype)
         return y
@@ -183,8 +186,9 @@ class JointBlock(nn.Module):
             sc = F.silu(c)
             mod_x = self.norm1_linear(sc)
             mod_c = self.norm1_context_linear(sc)
-        sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(mod_x, 6, dim=-1)
-        cmods = torch.chunk(mod_c, 2 if self.context_pre_only else 6, dim=-1)
+        sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(batch_only(mod_x), 6, dim=-1)
+        cmods = torch.chunk(batch_only(mod_c), 2 if self.context_pre_only
+                            else 6, dim=-1)
 
         lx, lc = ln_pair(x, ctx)
         x_in = modulate(lx, sh1, sc1)
@@ -207,9 +211,15 @@ class JointBlock(nn.Module):
                                    "attn_norm_added_k")], dim=1)
         v = torch.cat([self._heads(x_in, "attn_to_v", None),
                        self._heads(c_in, "attn_add_v_proj", None)], dim=1)
-        o = A.mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-        b, _, t_all, _ = o.shape
-        o = o.transpose(1, 2).reshape(b, t_all, -1)
+        if is_dtensor(q):              # sharded: local rows (and heads)
+            o = local_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2),
+                                _tp_axis(self.attn_to_q.kernel), A.mha)
+        else:
+            o = A.mha(q.transpose(1, 2), k.transpose(1, 2),
+                      v.transpose(1, 2)).transpose(1, 2)
+        b, t_all = o.shape[:2]
+        o = o.reshape(b, t_all, -1)
         o_x, o_c = o[:, :t_x], o[:, t_x:]
 
         x = x + g1[:, None, :] * self.attn_to_out_0(o_x)
@@ -237,17 +247,21 @@ class MMDiT(nn.Module):
     N(0, 1/fan_in), biases 0, RMSNorm scales 1, and every adaLN modulation
     and ``proj_out`` zero (the output is 0 until weights are loaded or
     perturbed).  ``quant``: ``None`` or ``"w8"``, settable later through
-    :meth:`set_quant`.  ``token_constraint`` is refused: the sharding hook
-    comes with the parallelism slice."""
+    :meth:`set_quant`.  ``token_constraint``: a ``parallel.NamedSharding``
+    of the ``[B, T, D]`` latent tokens applied between the joint blocks
+    (Megatron SP, JAX ``models/mmdit.py:224,271-273``); with DTensor
+    parameters (``parallel.mmdit_tp_sharding``) and input the forward runs
+    on DTensors, attention on local rows and heads, as the DiT's."""
 
     def __init__(self, config: MMDiTConfig = SD3_MEDIUM, *,
                  quant: str | None = None, device="cuda", seed: int = 0,
                  token_constraint=None):
         super().__init__()
-        if token_constraint is not None:
-            raise NotImplementedError(
-                "MMDiT token_constraint (the sharding hook) comes with the "
-                "parallelism slice (ROADMAP.md, Queue A, entry 12)")
+        if token_constraint is not None and not hasattr(
+                token_constraint, "constrain"):
+            raise TypeError(f"token_constraint must be a parallel."
+                            f"NamedSharding, got {token_constraint!r}")
+        self.token_constraint = token_constraint
         dev = resolve_device(device)
         cfg = self.config = config
         d, p = cfg.hidden_size, cfg.patch_size
@@ -288,6 +302,8 @@ class MMDiT(nn.Module):
     @torch.no_grad()
     def _init_weights(self, seed: int):
         dev = self.context_embedder.kernel.device
+        if dev.type == "meta":          # shapes only: nothing to fill
+            return
         gen = torch.Generator(device=dev).manual_seed(seed)
         zero = ("norm1_linear", "norm1_context_linear", "norm_out_linear",
                 "proj_out")
@@ -317,6 +333,10 @@ class MMDiT(nn.Module):
         given, the timestep/pooled MLPs, every block's adaLN product and the
         context embedder are skipped and ``t``, ``pooled`` and ``context``
         are ignored."""
+        with sharded_forward(x):
+            return self._forward(x, t, context, pooled, mods)
+
+    def _forward(self, x, t, context, pooled, mods):
         cfg = self.config
         b, hh, ww, _ = x.shape
         p, d = cfg.patch_size, cfg.hidden_size
@@ -333,12 +353,16 @@ class MMDiT(nn.Module):
             c = self.time_text_embed(t, pooled).to(tok.dtype)
             ctx = self.context_embedder(context.to(tok.dtype))
         for i, blk in enumerate(self.blocks):
+            if self.token_constraint is not None:
+                tok = self.token_constraint.constrain(tok)
             tok, ctx = blk(tok, ctx, c,
                            mods=None if mods is None else mods["blocks"][i])
         mod = mods["out"] if mods is not None else self.norm_out_linear(
             F.silu(c))
-        scale, shift = torch.chunk(mod, 2, dim=-1)     # (scale, shift) order
-        tok = self.proj_out(modulate(layer_norm(tok), shift, scale))
+        # (scale, shift) order
+        scale, shift = torch.chunk(batch_only(mod), 2, dim=-1)
+        tok = batch_only(self.proj_out(modulate(layer_norm(tok), shift,
+                                                scale)))
         out = tok.reshape(b, gh, gw, p, p, cfg.in_channels)
         return out.transpose(2, 3).reshape(b, gh * p, gw * p, cfg.in_channels)
 

@@ -27,8 +27,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("weighted_sum", "conv3x3", "attention", "qmatmul", "group_norm",
-           "fused_act", "conv3x3_int8")
+SOURCES = ("weighted_sum", "conv3x3", "attention", "attention_bwd",
+           "qmatmul", "group_norm", "fused_act", "conv3x3_int8")
 # -split-compile=0 runs each nvcc's optimisation passes on as many threads
 # as the host has cores: on the H100's 8-core host the longest sources
 # (conv3x3.cu, group_norm.cu) build in ~21 s instead of ~35 s, every

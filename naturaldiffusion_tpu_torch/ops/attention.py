@@ -10,7 +10,18 @@
 * :func:`mha_reference` — the plain version of K9: both products and the
   softmax in float32, output in q's type.
 * :func:`mha_joint` — split-softmax joint attention over ``[latent;
-  context]``, its latent block through K10 with the row logsumexp.
+  context]``, its latent block through K10 with the row logsumexp.  It has
+  no gradient, as in JAX (splash's ``save_residuals`` forward has no VJP).
+* Gradients: under grad mode K9 and K10 are one ``torch.autograd.Function``
+  (:class:`_AttentionFn`): the forward keeps the row logsumexp, the
+  backward is the kernel of ``csrc/attention_bwd.cu`` for a CUDA tensor
+  (:func:`flash_attention_backward`, :func:`splash_attention_backward`)
+  and :func:`attention_backward_reference` for a CPU one.
+* ``mha(backend="ring", mesh=...)`` is ring attention over a mesh axis
+  (:mod:`.ring_attention`).
+
+The wrappers take local tensors: a DTensor raises (the models convert at
+their boundary, ``to_local`` / ``from_local``).
 
 The JAX package's ``"auto"`` picks its flash kernel only on a TPU and only
 for ``t >= 256``; here every CUDA call takes the kernel, which masks keys
@@ -28,13 +39,13 @@ import math
 import torch
 
 from . import _cuda
-from ._autograd import inference_only
+from ._autograd import NoBackward, needs_grad, refuse_dtensor
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 72)
-# natdiff_flash_attention(dtype, d, q, k, v, o, s_b, s_h, s_t, o_b, o_h,
-# o_t, B, H, T, scale_log2, warps, stages, smem, stream)
-_FA_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+# natdiff_flash_attention(dtype, d, q, k, v, o, lse, s_b, s_h, s_t, o_b,
+# o_h, o_t, B, H, T, scale_log2, warps, stages, smem, stream)
+_FA_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                 + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3
                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 # natdiff_splash_attention(dtype, d, q, k, v, o, lse, s_b, s_h, s_t, o_b,
@@ -42,6 +53,12 @@ _FA_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
 _SPLASH_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                     + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 6
                     + [ctypes.c_void_p])
+# natdiff_attention_bwd(dtype, d, q, k, v, o, do, lse, delta, dq, dk, dv,
+# s_b, s_h, s_t, o_b, o_h, o_t, d_b, d_h, d_t, g_b, g_h, g_t, B, H, T,
+# scale, stream)
+_BWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+                 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
+                 + [ctypes.c_float, ctypes.c_void_p])
 
 # --- the kernel's block plan ---------------------------------------------------
 # constants of csrc/attention.cu (the entry checks them): keys per tile,
@@ -50,8 +67,6 @@ _BKV, _RING_STAGES, _WARP_ROWS = 64, 3, 16
 # blocks a bf16 launch of 8 warps should reach, else it takes 4 warps: two
 # per SM of the card's 132
 _MIN_BLOCKS_8 = 264
-_UNPORTED = {"ring": "ring attention comes with the parallelism slice "
-                     "(ROADMAP.md, Queue A, slice 8)"}
 
 
 def _attn_plan(b: int, h: int, t: int, d: int, dtype) -> dict:
@@ -88,12 +103,40 @@ def _plan_ints(b: int, h: int, t: int, d: int, dtype) -> tuple:
     return p["warps"], p["stages"], p["smem"]
 
 
+def _ct(q):
+    """The plain versions' compute type: float32, float64 for float64."""
+    return torch.promote_types(q.dtype, torch.float32)
+
+
+def _scores(q, k, scale: float):
+    ct = _ct(q)
+    return torch.matmul(q.to(ct), k.to(ct).transpose(-1, -2)) * scale
+
+
 def mha_reference(q, k, v, sm_scale: float):
-    """Plain version: ``softmax(sm_scale * q k^T) v`` in float32."""
-    s = torch.matmul(q.to(torch.float32),
-                     k.to(torch.float32).transpose(-1, -2)) * sm_scale
-    p = torch.softmax(s, dim=-1)
-    return torch.matmul(p, v.to(torch.float32)).to(q.dtype)
+    """Plain version: ``softmax(sm_scale * q k^T) v`` in float32 (float64
+    for float64 inputs)."""
+    p = torch.softmax(_scores(q, k, sm_scale), dim=-1)
+    return torch.matmul(p, v.to(p.dtype)).to(q.dtype)
+
+
+def attention_backward_reference(q, k, v, o, do, lse, scale: float):
+    """Plain version of the backward kernel: ``(dq, dk, dv)`` of
+    ``o = softmax(scale * q k^T) v`` given o, the row logsumexp ``lse`` of
+    the scaled scores and the cotangent ``do``, each in its input's type.
+    Written out in float32 (float64 for float64 inputs) as the kernel
+    computes it: ``p = exp(scale q k^T - lse)``, ``dv = p^T do``,
+    ``dS = p * (do v^T - delta)`` with ``delta = rowsum(do * o)``,
+    ``dq = scale dS k``, ``dk = scale dS^T q``."""
+    ct = _ct(q)
+    qf, kf, vf, of, dof = (a.to(ct) for a in (q, k, v, o, do))
+    p = torch.exp(_scores(q, k, scale) - lse.to(ct)[..., None])
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def mha_xla(q, k, v, sm_scale: float):
@@ -104,18 +147,24 @@ def mha_xla(q, k, v, sm_scale: float):
     return torch.matmul(torch.softmax(s, dim=-1), v)
 
 
+def _rows_ok(x) -> bool:
+    """The head dim is contiguous and every row start 16-byte aligned."""
+    return (x.stride(3) == 1 and not any(s % 8 for s in x.stride()[:3])
+            and x.data_ptr() % 16 == 0)
+
+
 def _kernel_strides(q, k, v):
     """(s_b, s_h, s_t) shared by q, k and v when the kernel can read them
-    in place (head dim contiguous, rows 16-byte aligned), else None."""
+    in place (:func:`_rows_ok`), else None."""
     st = q.stride()
-    if any(t.stride() != st for t in (k, v)) or st[3] != 1:
-        return None
-    if any(s % 8 for s in st[:3]) or any(t.data_ptr() % 16 for t in (q, k, v)):
+    if any(t.stride() != st for t in (k, v)) or not all(
+            _rows_ok(t) for t in (q, k, v)):
         return None
     return st[:3]
 
 
 def _check_qkv(q, k, v):
+    refuse_dtensor("attention", q, k, v)
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one [B, H, T, D] shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -150,7 +199,7 @@ def _launch(q, k, v, sm_scale, lse: bool, what: str):
     res = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if lse else None)
     args = (_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr())
+            out.data_ptr(), None if res is None else res.data_ptr())
     strides = (st[0], st[1], st[2], out.stride(0), out.stride(2),
                out.stride(1), b, h, t)
     plan = _plan_ints(b, h, t, d, q.dtype)
@@ -158,8 +207,7 @@ def _launch(q, k, v, sm_scale, lse: bool, what: str):
         if sm_scale is None:
             fn = _cuda.entry("attention", "natdiff_splash_attention",
                              _SPLASH_ARGTYPES)
-            err = fn(*args, None if res is None else res.data_ptr(),
-                     *strides, *plan, _cuda.stream_ptr(q))
+            err = fn(*args, *strides, *plan, _cuda.stream_ptr(q))
         else:
             fn = _cuda.entry("attention", "natdiff_flash_attention",
                              _FA_ARGTYPES)
@@ -169,7 +217,137 @@ def _launch(q, k, v, sm_scale, lse: bool, what: str):
     return out.transpose(1, 2), res
 
 
-@inference_only("flash_attention (K9)")
+def _launch_bwd(q, k, v, o, do, lse, scale: float, what: str):
+    """One call of ``csrc/attention_bwd.cu`` on CUDA tensors (three
+    launches: the delta pre-pass, the dk/dv kernel, the dq kernel).
+    Returns ``(dq, dk, dv)``, ``[B, H, T, D]`` views of ``[B, T, H, D]``
+    tensors."""
+    b, h, t, d = q.shape
+    if q.dtype not in _DTYPES or any(a.dtype != q.dtype
+                                     for a in (k, v, o, do)):
+        raise ValueError(f"the attention backward takes float32 or bfloat16 "
+                         f"q, k, v, o, do of one type, got "
+                         f"{[a.dtype for a in (q, k, v, o, do)]}")
+    if d not in _HEAD_DIMS or b * h > 65535 or t == 0:
+        raise ValueError(f"the attention backward takes head dims "
+                         f"{_HEAD_DIMS}, T >= 1 and B*H <= 65535, got "
+                         f"{(b, h, t, d)}")
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, t):
+        raise ValueError(f"o, do must be {tuple(q.shape)} and lse "
+                         f"{(b, h, t)}, got {tuple(o.shape)}, "
+                         f"{tuple(do.shape)}, {tuple(lse.shape)}")
+    st = _kernel_strides(q, k, v)
+    if st is None:
+        q, k, v = (a.contiguous() for a in (q, k, v))
+        st = q.stride()[:3]
+    o = o if _rows_ok(o) else o.contiguous()
+    do = do if _rows_ok(do) else do.contiguous()
+    lse = lse.to(torch.float32).contiguous()
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    grads = torch.empty((3, b, t, h, d), dtype=q.dtype, device=q.device)
+    g = grads[0]
+    fn = _cuda.entry("attention_bwd", "natdiff_attention_bwd", _BWD_ARGTYPES)
+    with _cuda.on_device(q):
+        err = fn(_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), grads[0].data_ptr(), grads[1].data_ptr(),
+                 grads[2].data_ptr(), *st, o.stride(0), o.stride(1),
+                 o.stride(2), do.stride(0), do.stride(1), do.stride(2),
+                 g.stride(0), g.stride(2), g.stride(1), b, h, t, float(scale),
+                 _cuda.stream_ptr(q))
+    _cuda.check("attention_bwd", err, what)
+    return tuple(grads[i].transpose(1, 2) for i in range(3))
+
+
+def _attention_backward(q, k, v, o, do, lse, scale, what):
+    _check_qkv(q, k, v)
+    refuse_dtensor(what, o, do, lse)
+    if q.device.type == "cpu":
+        return attention_backward_reference(q, k, v, o, do, lse, scale)
+    return _launch_bwd(q, k, v, o, do, lse, scale, what)
+
+
+def flash_attention_backward(q, k, v, o, do, lse, scale: float):
+    """K9's backward: ``(dq, dk, dv)`` of ``softmax(scale q k^T) v``, given
+    the forward's output ``o`` and row logsumexp ``lse``.  A CUDA tensor
+    takes the kernel of ``csrc/attention_bwd.cu`` (float32 or bfloat16, D
+    in {16, 32, 64, 72}) or raises; a CPU tensor takes
+    :func:`attention_backward_reference`.  ``.launches`` counts calls of
+    the kernel (each is three device launches: the delta pre-pass, dk/dv,
+    dq)."""
+    out = _attention_backward(q, k, v, o, do, lse, scale,
+                              "flash_attention_backward")
+    if q.device.type == "cuda":
+        flash_attention_backward.launches += 1
+    return out
+
+
+flash_attention_backward.launches = 0
+
+
+def splash_attention_backward(qs, k, v, o, do, lse):
+    """K10's backward on pre-scaled ``qs``: the same kernel at scale 1, so
+    the returned first gradient is the one of ``qs`` (the scale reaches q's
+    through the pre-scaling product).  Counted in ``.launches``."""
+    out = _attention_backward(qs, k, v, o, do, lse, 1.0,
+                              "splash_attention_backward")
+    if qs.device.type == "cuda":
+        splash_attention_backward.launches += 1
+    return out
+
+
+splash_attention_backward.launches = 0
+
+
+def _forward_with_lse(q, k, v, scale, splash: bool):
+    """``(out, lse)``: the kernel (counted) for a CUDA tensor, the plain
+    version for a CPU one."""
+    if q.device.type == "cpu":
+        s = _scores(q, k, scale)
+        out = torch.matmul(torch.softmax(s, dim=-1), v.to(s.dtype))
+        return out.to(q.dtype), torch.logsumexp(s, dim=-1)
+    if splash:
+        out, lse = _launch(q, k, v, None, True, "splash_attention")
+        splash_attention.launches += 1
+    else:
+        out, lse = _launch(q, k, v, scale, True, "flash_attention")
+        flash_attention.launches += 1
+    return out, lse
+
+
+class _AttentionFn(torch.autograd.Function):
+    """K9 (``splash=False``) or K10 (``splash=True``, q pre-scaled, scale
+    1) under grad: the forward keeps the row logsumexp, the backward runs
+    the backward kernel.  A second derivative raises, naming the kernel,
+    as JAX's attention kernels have none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, splash):
+        out, lse = _forward_with_lse(q, k, v, scale, splash)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.splash = scale, splash
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if ctx.splash:
+            def fn(q_, k_, v_, do_):
+                return splash_attention_backward(q_, k_, v_, o, do_, lse)
+            label = "splash_attention (K10)"
+        else:
+            def fn(q_, k_, v_, do_):
+                return flash_attention_backward(q_, k_, v_, o, do_, lse,
+                                                ctx.scale)
+            label = "flash_attention (K9)"
+        if needs_grad(q, k, v, do):     # create_graph: keep it, and refuse
+            grads = NoBackward.apply(    # its own backward
+                f"{label} has no second derivative", fn, q, k, v, do)
+        else:
+            grads = fn(q, k, v, do)
+        return (*grads, None, None)
+
+
 def flash_attention(q, k, v, sm_scale: float):
     """Non-causal attention over ``[B, H, T, D]``, softmax in f32, output in
     q's type.  A CPU tensor takes :func:`mha_reference`; a CUDA tensor takes
@@ -179,8 +357,11 @@ def flash_attention(q, k, v, sm_scale: float):
     ``[B, T, 3, H, D]``); the kernel reads them in place when their strides
     allow, else from contiguous copies.  The output is a ``[B, H, T, D]``
     view of a ``[B, T, H, D]`` tensor, so transposing it back to tokens is
-    free."""
+    free.  Under grad it is :class:`_AttentionFn`, whose backward is
+    :func:`flash_attention_backward`."""
     _check_qkv(q, k, v)
+    if needs_grad(q, k, v):
+        return _AttentionFn.apply(q, k, v, sm_scale, False)
     if q.device.type == "cpu":
         return mha_reference(q, k, v, sm_scale)
     out, _ = _launch(q, k, v, sm_scale, False, "flash_attention")
@@ -202,20 +383,26 @@ def splash_reference(qs, k, v, *, save_residuals: bool = False):
     """Plain version of K10 on pre-scaled ``qs``: ``softmax(qs k^T) v`` in
     float32, output in qs's type; with ``save_residuals`` also each row's
     natural-log logsumexp of ``qs k^T`` (float32 ``[B, H, T]``)."""
-    s = torch.matmul(qs.to(torch.float32),
-                     k.to(torch.float32).transpose(-1, -2))
-    out = torch.matmul(torch.softmax(s, dim=-1),
-                       v.to(torch.float32)).to(qs.dtype)
+    s = _scores(qs, k, 1.0)
+    out = torch.matmul(torch.softmax(s, dim=-1), v.to(s.dtype)).to(qs.dtype)
     if not save_residuals:
         return out
     return out, torch.logsumexp(s, dim=-1)
 
 
-@inference_only("splash_attention (K10)")
 def _splash(qs, k, v, save_residuals: bool):
     """K10 on pre-scaled ``qs``: the kernel for CUDA tensors, the plain
-    version for CPU ones."""
+    version for CPU ones; under grad :class:`_AttentionFn`.  The logsumexp
+    output (``save_residuals``) has no gradient: under grad it raises, as
+    JAX's ``save_residuals`` splash kernel has no VJP."""
     _check_qkv(qs, k, v)
+    if needs_grad(qs, k, v):
+        if save_residuals:
+            raise NotImplementedError(
+                "splash_attention (K10) with save_residuals has no "
+                "gradient (JAX's splash kernel has no VJP for its "
+                "residuals): call it under torch.no_grad()")
+        return _AttentionFn.apply(qs, k, v, 1.0, True)
     if qs.device.type == "cpu":
         return splash_reference(qs, k, v, save_residuals=save_residuals)
     out, lse = _launch(qs, k, v, None, save_residuals, "splash_attention")
@@ -237,18 +424,24 @@ def splash_attention(q, k, v, sm_scale: float, *,
 splash_attention.launches = 0
 
 
-def mha(q, k, v, *, backend: str = "auto", sm_scale: float | None = None):
+def mha(q, k, v, *, backend: str = "auto", sm_scale: float | None = None,
+        mesh=None, ring_axis: str = "model"):
     """q/k/v: [B, H, T, D] -> [B, H, T, D]; ``sm_scale`` defaults to
     1/sqrt(D).  ``backend``: ``"auto"`` or ``"flash"`` (kernel K9 on the
     card), ``"splash"`` (kernel K10 on the card), ``"splash_interpret"``
     (K10's plain version on any device, as JAX's interpret mode runs the
     kernel's function without the hardware), ``"xla"`` (the plain einsum
-    pair); ``"ring"`` is not ported yet."""
-    if backend in _UNPORTED:
-        raise NotImplementedError(f"backend={backend!r} is not ported yet: "
-                                  f"{_UNPORTED[backend]}")
+    pair), ``"ring"`` (:func:`.ring_attention.ring_mha` over ``mesh``'s
+    ``ring_axis``: K/V stay token-sharded and rotate around the ring; a
+    DTensor in gives the T-sharded DTensor out, a plain tensor the plain
+    gathered output)."""
     d = q.shape[-1]
     sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    if backend == "ring":
+        if mesh is None:
+            raise ValueError("backend='ring' needs a mesh")
+        from .ring_attention import ring_mha
+        return ring_mha(q, k, v, mesh, axis=ring_axis, sm_scale=sm_scale)
     if backend in ("auto", "flash"):
         return flash_attention(q, k, v, sm_scale)
     if backend == "splash":
@@ -288,6 +481,12 @@ def mha_joint(q, k, v, *, split: int, sm_scale: float | None = None,
     if not fast:
         return mha(q, k, v, backend=backend, sm_scale=sm_scale)
     _check_qkv(q, k, v)
+    if needs_grad(q, k, v):
+        raise NotImplementedError(
+            "mha_joint has no gradient: its latent block is splash "
+            "attention (K10) with save_residuals, whose logsumexp has no "
+            "VJP in JAX either (jax.grad through mha_joint raises "
+            "'Higher-order AD not supported'); differentiate mha instead")
 
     f32 = torch.float32
     qs = prescale(q, sm_scale)

@@ -28,6 +28,7 @@ import os
 
 import torch
 
+from ..ops._autograd import is_dtensor
 from .ema import EMA
 from .losses import OptState
 from .state import TrainState
@@ -51,8 +52,9 @@ def _parts(state: TrainState):
 
 def _flat(ts):
     """The tensors ``ts`` (one type and device) as one host tensor: one
-    device-to-host copy."""
-    return torch.cat([t.detach().reshape(-1) for t in ts]).cpu()
+    device-to-host copy.  A sharded (DTensor) state is gathered first."""
+    return torch.cat([(t.full_tensor() if is_dtensor(t) else t)
+                      .detach().reshape(-1) for t in ts]).cpu()
 
 
 def _payload(state: TrainState) -> dict:

@@ -68,13 +68,15 @@ class Optimizer:
         frac = f32(1) - f32(min(max(count, 0), self.warmup)) / f32(self.warmup)
         return (f32(0.0) - f32(self.lr)) * frac + f32(self.lr)
 
-    def clip(self, grads):
+    def clip(self, grads, norm=None):
         """``clip_by_global_norm``: ``g`` where ``|g| < max_norm``, else
-        ``(g / |g|) * max_norm``; decided on the device, no host read."""
+        ``(g / |g|) * max_norm``; decided on the device, no host read.
+        ``norm``: the global norm when ``grads`` are shards of it."""
         if self.grad_clip <= 0:
             return grads
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm(grads)))
         keep = norm < self.grad_clip
         one = torch.ones((), dtype=norm.dtype, device=norm.device)
         grads = torch._foreach_div(grads, torch.where(keep, one, norm))
@@ -82,10 +84,12 @@ class Optimizer:
             grads, torch.where(keep, one, one * self.grad_clip))
 
     @torch.no_grad()
-    def update(self, params, grads, state: OptState) -> OptState:
+    def update(self, params, grads, state: OptState,
+               grad_norm=None) -> OptState:
         """One step on ``params`` (a list of tensors, updated in place) from
-        ``grads``; the moments are updated in place, the counts advanced."""
-        params, grads = list(params), self.clip(list(grads))
+        ``grads``; the moments are updated in place, the counts advanced.
+        ``grad_norm``: the gradients' global norm, for shards of them."""
+        params, grads = list(params), self.clip(list(grads), grad_norm)
         b1, b2 = self.b1, self.b2
         torch._foreach_mul_(state.mu, b1)
         torch._foreach_add_(state.mu, torch._foreach_mul(grads, 1 - b1))

@@ -78,8 +78,10 @@ def test_strided_qkv_views_as_the_dit_passes_them():
 
 @pytest.mark.parametrize("backend", ["ring"])
 def test_unported_backends_raise(backend):
+    """Ring attention is ported (``tests/test_torch_parallel.py`` runs it on
+    a mesh); without a mesh it has nothing to run over and raises."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(16, 64))
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(ValueError, match="mesh"):
         A.mha(q, k, v, backend=backend)
 
 

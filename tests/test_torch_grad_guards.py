@@ -1,7 +1,10 @@
 """The inference kernels' guards: under grad mode, with an input that
-requires grad, K1, K7, K8, K9, K10 and Q1 (their plain routes here) keep
-their output in the graph and a backward through it raises an error naming
-the kernel; without grad the call returns a plain tensor.  The training
+requires grad, K1, K7, K8 and Q1 (their plain routes here) keep their output
+in the graph and a backward through it raises an error naming the kernel;
+without grad the call returns a plain tensor.  K9 and K10 have a backward
+(``csrc/attention_bwd.cu``) but no second derivative, as JAX's attention
+kernels: their first derivative, taken with ``create_graph``, stays in the
+graph and a backward through it raises naming the kernel.  The training
 kernels K2, K3, K4 and K6 take their Functions only under grad; and the
 inference entry points run under ``torch.no_grad``."""
 
@@ -21,6 +24,18 @@ def _t(*shape, grad=True, seed=0):
     return torch.randn(shape, generator=g).requires_grad_(grad)
 
 
+def _grad_of(fn):
+    """``fn``'s output, or under grad its first derivative kept in the
+    graph (``create_graph``): a backward through that is the second
+    derivative."""
+    def call(a):
+        out = fn(a)
+        if not out.requires_grad:
+            return out
+        return torch.autograd.grad(out.float().sum(), a, create_graph=True)[0]
+    return call
+
+
 def _k7(x):
     w_i8 = torch.randint(-127, 128, (128, 128), dtype=torch.int8)
     return qmatmul.matmul_wdq(x, w_i8, torch.ones(128), bias=None)
@@ -36,9 +51,11 @@ GUARDED = {
         lambda a: fused_act.fused_leaky_relu_pallas(a, torch.zeros(8)),
         (2, 8)),
     "flash_attention (K9)": (
-        lambda a: attention.flash_attention(a, a, a, 0.25), (1, 2, 8, 16)),
+        _grad_of(lambda a: attention.flash_attention(a, a, a, 0.25)),
+        (1, 2, 8, 16)),
     "splash_attention (K10)": (
-        lambda a: attention.splash_attention(a, a, a, 0.25), (1, 2, 8, 16)),
+        _grad_of(lambda a: attention.splash_attention(a, a, a, 0.25)),
+        (1, 2, 8, 16)),
     "conv3x3_int8 (Q1)": (
         lambda a: quant.conv3x3_int8(a, torch.ones(3, 3, 8, 8) * 0.1),
         (1, 4, 4, 8)),

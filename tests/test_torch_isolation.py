@@ -206,6 +206,15 @@ assert torch.isfinite(lk(torch.Generator(), torch.zeros(1, 4, 4, 3))[0]).all()
 assert callable(train_app.main) and callable(bench_train.count_flops)
 assert callable(tfrecord.tfrecord_iterator) and callable(functional_apply)
 assert callable(image_folder.image_folder_iterator)
+import torch.distributed as dist
+from naturaldiffusion_tpu_torch import parallel
+from naturaldiffusion_tpu_torch.ops.ring_attention import ring_mha
+from naturaldiffusion_tpu_torch.parallel import dryrun
+mesh = parallel.make_mesh({{"data": 1, "model": 1}}, device="cpu")
+assert dist.get_world_size() == 1 and callable(dryrun.dryrun_multichip)
+assert torch.isfinite(ring_mha(q, q, q, mesh)).all()
+assert set(parallel.__all__) >= {{"make_mesh", "fsdp_sharding",
+                                  "constrain_tokens", "fold_in_shard"}}
 bad = sorted(k for k in sys.modules
              if k in ("jax", "naturaldiffusion_tpu", "regex", "pandas",
                       "optax", "orbax")
@@ -292,6 +301,16 @@ def test_sampler_entry_points_refuse_a_missing_card(monkeypatch):
         validate.main(["--alg", "ddim", "--steps", "2"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sweep.main(["--family", "deis", "--num", "1"])
+
+
+def test_parallel_entry_points_refuse_a_missing_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from naturaldiffusion_tpu_torch.parallel import make_mesh
+    from naturaldiffusion_tpu_torch.parallel.dryrun import dryrun_multichip
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip(1, device="cuda")
 
 
 def test_dit_entry_points_refuse_a_missing_card(monkeypatch):

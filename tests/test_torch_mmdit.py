@@ -5,7 +5,8 @@ the table), every weight random from numpy and carried across by
 ``load_jax_params``: the forward, the hoisted modulations, the CFG
 predictor, bf16 against JAX's bf16-vs-f32 control, the cropped positions,
 the per-stream LayerNorm against JAX's fused one, the converter on the
-torch twin's state dict, and the refused ``token_constraint``."""
+torch twin's state dict, and a ``token_constraint`` that is no sharding
+refused."""
 
 import dataclasses
 
@@ -180,7 +181,9 @@ def test_cropped_pos_embed_equals_jax(grid):
 
 
 def test_token_constraint_is_refused():
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
+    """The hook takes a sharding (``parallel.NamedSharding``; the 4-rank
+    tests run it); anything else is refused."""
+    with pytest.raises(TypeError, match="NamedSharding"):
         tm.MMDiT(tm.MMDiTConfig(**CFG), device="cpu", token_constraint=1)
 
 

@@ -2,7 +2,7 @@
 bytes against the JAX app's; ``train`` for 3 iterations on a toy binary
 (metrics, a snapshot and its EMA sample grid, then a run cut after 2
 iterations and resumed from ``checkpoints-meta`` equal bit for bit to the
-uninterrupted one), its eval mode, ``--fsdp`` refused; ``bench_train``'s
+uninterrupted one), its eval mode, ``--fsdp`` equal to the run without it; ``bench_train``'s
 JSON line with the JAX app's keys."""
 
 import json
@@ -98,10 +98,23 @@ def test_train_bf16_and_eval(toy, tmp_path, capsys):
     assert "eval loss (EMA, 16 batches)" in capsys.readouterr().out
 
 
-def test_train_refuses_fsdp(tmp_path):
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        tapp.main(["--workdir", str(tmp_path), "--n-iters", "1", "--fsdp"]
-                  + SMALL)
+def test_train_refuses_fsdp(toy, tmp_path):
+    """``--fsdp`` is ported: on the 1-rank CPU mesh two steps with it leave
+    the state of two steps without it (the 4-rank check against the
+    replicated step is ``tests/test_torch_parallel.py``'s)."""
+    states = {}
+    for flag in ([], ["--fsdp"]):
+        wd = str(tmp_path / ("fsdp" if flag else "plain"))
+        assert tapp.main(["--workdir", wd, "--n-iters", "2",
+                          "--data-dir", toy, "--sample-steps", "2"] + flag
+                         + SMALL) == 0
+        states[bool(flag)] = _state(wd)
+    want, got = states[False], states[True]
+    for a, b in ((got["params"], want["params"]),
+                 (got["opt_state"]["mu"], want["opt_state"]["mu"]),
+                 (got["ema"]["shadow"], want["ema"]["shadow"])):
+        for k, v in b.items():
+            torch.testing.assert_close(a[k], v, rtol=0, atol=0)
 
 
 def test_train_refuses_a_missing_card(tmp_path, monkeypatch):
