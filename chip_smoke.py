@@ -127,7 +127,9 @@ printed as one line with its numbers and seconds as it ends:
            shape, SD3-medium's and the kernel table's lengths and each head
            dim at a ragged T, f32 and bf16, with 1 %- and 5 %-off controls
            that must fail; timed beside the plain version, SDPA's flash
-           backward and its bound, forward + backward beside SDPA's; (2)
+           backward and its bound, forward + backward beside SDPA's, and
+           in bf16 the backward run twice on the same inputs with the
+           largest difference of dq, dk and dv between the runs; (2)
            three full-width DiT-XL/2 bf16 train steps at batch 32 under
            ``dit_tp_sharding`` and the (data, model, -) token constraint,
            28 K9 and 28 K9-backward calls a step (the phase's main path),
@@ -867,6 +869,12 @@ def phase_build():
         lines = log.read_text().splitlines() if log.exists() else []
         ptxas[name] = sorted({ln.split(":", 1)[-1].strip() for ln in lines
                               if "registers" in ln or "spill" in ln})
+    # ptxas's notes that it serialised wgmma instructions (a slow form)
+    wgmma_notes = {name: sorted({ln.strip() for ln in (
+        (_cuda.build_dir() / f"{name}.log").read_text().splitlines()
+        if (_cuda.build_dir() / f"{name}.log").exists() else [])
+        if "wgmma" in ln and "serializ" in ln}) for name in secs}
+    wgmma_notes = {k: v for k, v in wgmma_notes.items() if v}
     spills = {}
     for src in PTXAS_CHECKED:
         kern = kernel_ptxas(_cuda.build_dir() / f"{src}.log")
@@ -875,7 +883,7 @@ def phase_build():
                   f"spilled", flush=True)
         spills[src] = (len(kern), sum(spill for _, _, spill in kern))
     phase("build", t, nvcc_seconds=secs, ptxas=ptxas,
-          kernels_and_spill_bytes=spills)
+          kernels_and_spill_bytes=spills, wgmma_serialized=wgmma_notes)
     if any(n == 0 or spilled for n, spilled in spills.values()):
         raise AssertionError(f"no ptxas lines, or a kernel spills: {spills}")
 
@@ -3579,7 +3587,9 @@ def phase_dit_slice(model32, smi):
 # SD3-medium's joint length and the kernel table's, each head dim at a
 # ragged T (201).  Timed (CUDA events, L2 flushed) in bf16 beside the
 # plain version, SDPA's flash backward (the library call) and its bound;
-# forward + backward beside SDPA's.
+# forward + backward beside SDPA's; the bf16 backward run twice on the same
+# inputs, the largest |difference| of dq, dk and dv printed (the wgmma
+# pass sums dq by f32 bulk reductions in no fixed order).
 BWD_F32_TOL, BWD_BF16_TOL = 1e-4, 2e-2
 BWD_SHAPES = ((32, 16, 256, 72), (SD3_B, SD3_H, SD3_LAT + 333, SD3_D),
               (SD3_B, SD3_H, SD3_LAT + SD3_CTX, SD3_D),
@@ -3712,7 +3722,15 @@ def bwd_rows(torch, A, timer, gen):
                         torch.autograd.grad(out, (qg, kg, vg), do)
                     lib_fb = timer(sdpa_fb)
                     k9_fb_ms = timer(k9_fb)
+                # run to run: dq is summed by f32 bulk reductions in no
+                # fixed order of the key blocks; dk and dv have one writer
+                again = [A.flash_attention_backward(q, k, v, o, do, lse,
+                                                    scale) for _ in range(2)]
+                r2r = [float((x.float() - y.float()).abs().max())
+                       for x, y in zip(*again)]
+                del again
                 timed[str(list(shape))] = dict(
+                    run_to_run_max_abs_dq_dk_dv=r2r,
                     ms=timer(lambda: A.flash_attention_backward(
                         q, k, v, o, do, lse, scale)),
                     splash_ms=(timer(lambda: A.splash_attention_backward(
@@ -3919,6 +3937,9 @@ def phase_parallel(smi, details):
     worst = {d: max(max(r["rel_l2_dq_dk_dv"]) for r in rows
                     if r["dtype"] == d) for d in ("torch.float32",
                                                   "torch.bfloat16")}
+    for key, row in timed.items():
+        print(f"  K9 backward {key} bf16 run to run, max |a - b| of dq, dk, "
+              f"dv: {row['run_to_run_max_abs_dq_dk_dv']}", flush=True)
     phase("parallel", t0, card=smi, backward_rows=len(rows),
           backward_worst_rel_l2=worst, backward_timed=timed,
           dit_xl2_train=step, grad_check_k9=grad_k9,
@@ -3942,9 +3963,13 @@ def phase_parallel(smi, details):
                      "fwd_bwd_ms", "library_fwd_bwd_ms")},
                  fwd_bwd_ms=main["fwd_bwd_ms"],
                  library_fwd_bwd_ms=main["library_fwd_bwd_ms"],
+                 run_to_run_max_abs_dq_dk_dv={
+                     k: timed[k]["run_to_run_max_abs_dq_dk_dv"]
+                     for k in timed},
                  note="shape [32, 16, 256, 72] bf16, the DiT-XL/2 train "
-                      "step's; launches count calls (each is the delta "
-                      "pre-pass, the dk/dv and the dq kernels)"),
+                      "step's; launches count calls (each is three device "
+                      "launches: in bf16 at d 64 and 72 the pre-pass, the "
+                      "wgmma pass and the dq post-pass)"),
             dict(name="splash_attention_backward", route="cuda",
                  source="naturaldiffusion_tpu_torch/csrc/attention_bwd.cu",
                  replaces="jax/experimental/pallas/ops/tpu/splash_attention/"

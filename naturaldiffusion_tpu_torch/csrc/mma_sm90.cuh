@@ -1,9 +1,11 @@
 // Tensor-core and asynchronous-copy helpers shared by the port's kernels
-// (conv3x3.cu, attention.cu, qmatmul.cu, conv3x3_int8.cu): shared-memory
-// addresses, ldmatrix, mma.sync m16n8k16 on bf16 with f32 accumulators,
-// bf16x2 packing, cp.async with zero fill; for the Hopper kernels (qmatmul.cu,
-// conv3x3_int8.cu) wgmma, mbarriers, TMA, cluster shared memory, named
-// barriers, setmaxnreg and the host-side tensor-map encoder.
+// (conv3x3.cu, attention.cu, attention_bwd.cu, qmatmul.cu, conv3x3_int8.cu):
+// shared-memory addresses, ldmatrix, mma.sync m16n8k16 on bf16 with f32
+// accumulators, bf16x2 packing, cp.async with zero fill; for the Hopper
+// kernels (qmatmul.cu, conv3x3_int8.cu, attention_bwd.cu) wgmma and its
+// descriptors, mbarriers, TMA, bulk reductions, proxy fences, cluster
+// shared memory, named barriers, setmaxnreg and the host-side tensor-map
+// encoder.
 // Header-only; each .cu builds on its own.
 
 #pragma once
@@ -108,6 +110,14 @@ __device__ __forceinline__ void keep(uint64_t& r) {
 // swizzle, 8-row atoms 1024 bytes apart
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// the same for an MN-major operand (the transposed form of wgmma's imm-trans
+// flags): rows of 128 bytes along M or N, 8 rows of K 1024 bytes apart
+// (SBO), the next 64 elements of M or N lbo bytes on (LBO)
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t saddr, uint32_t lbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
@@ -247,10 +257,58 @@ __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// generic-proxy writes of shared memory made visible to the async proxy
+// (wgmma operands, bulk copies out of shared memory)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// global[dst .. dst + bytes) += shared[src ..] in f32, one bulk operation
+// of the issuing thread's bulk group
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, uint32_t src,
+                                                    int bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32"
+      " [%0], [%1], %2;\n"
+      :: "l"(dst), "r"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// four 8x8 b16 matrices from registers to shared memory, the transpose of
+// ldmatrix: lane i gives the row address of matrix i / 8, thread i's
+// register k holds row i / 4, columns 2 (i % 4) and + 1 of matrix k
+__device__ __forceinline__ void stsm_x4(uint32_t saddr, const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      :: "r"(saddr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]) : "memory");
+}
+// 2^x, one MUFU operation (flushes denormals)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the thread's bulk groups, all but N: their reads of shared memory done
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+// ... and complete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // threads of the block's warps [first, first + n / 32) meet here (bar 0 is
 // __syncthreads')
 __device__ __forceinline__ void named_barrier(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// this warp's threads count towards barrier id's n without waiting
+__device__ __forceinline__ void named_barrier_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
 // a warpgroup's per-thread register budget (a multiple of 8 in [24, 256]),

@@ -202,8 +202,13 @@ def fill_from_torch(model, state_dict: Mapping[str, object], path_map=None,
     JAX's transposes (InstanceNorm++'s ``alpha``, ``gamma`` and ``beta``
     keep their names, an ``embedding`` is a torch ``weight``).  Raises ``KeyError`` on a missing key and ``ValueError`` on
     a wrong shape; nothing is written unless every parameter is found.
-    Returns the unused torch keys."""
+    A path map may carry a ``missing(key, state_dict, shape)`` attribute
+    that gives the port-layout value of a key the state dict lacks, or
+    None to raise (``models.vae.vae_torch_path_map``: the 1x1
+    ``quant_conv``/``post_quant_conv`` that SD3's VAE drops load as
+    identity).  Returns the unused torch keys."""
     pm = path_map or ncsnpp_torch_path_map
+    missing = getattr(pm, "missing", None)
     module = model.layers if isinstance(getattr(model, "layers", None),
                                         torch.nn.Module) else model
     values, used = {}, set()
@@ -212,15 +217,19 @@ def fill_from_torch(model, state_dict: Mapping[str, object], path_map=None,
         torch_leaf, tf = _torch_leaf_and_transform(path)
         key = pm(path[:-1])
         key = f"{root}{key}.{torch_leaf}" if key else f"{root}{torch_leaf}"
-        if key not in state_dict:
-            raise KeyError(f"port parameter {name} -> missing torch key "
-                           f"{key!r}")
-        arr = tf(_to_numpy(state_dict[key]))
+        if key in state_dict:
+            arr = tf(_to_numpy(state_dict[key]))
+            used.add(key)
+        else:
+            arr = (missing(key, state_dict, tuple(p.shape)) if missing
+                   else None)
+            if arr is None:
+                raise KeyError(f"port parameter {name} -> missing torch "
+                               f"key {key!r}")
         if arr.shape != tuple(p.shape):
             raise ValueError(f"{key}: torch {arr.shape} vs port "
                              f"{tuple(p.shape)} at {name}")
         values[name] = arr
-        used.add(key)
     with torch.no_grad():
         for name, p in module.named_parameters():
             p.copy_(torch.from_numpy(np.ascontiguousarray(values[name])))

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -212,9 +213,11 @@ class AutoencoderKL(nn.Module):
     """``encode(x [B,H,W,3] in [-1, 1], generator=None)`` -> ``(mean,
     logvar)`` ``[B,H/8,W/8,latent]``, or a sample with ``generator``;
     ``decode(z)`` -> ``[B,H,W,3]``.  SD 1.x/2.x VAEs have the 1x1
-    ``quant_conv``/``post_quant_conv``; SD3's checkpoint lacks them, which
-    :func:`.convert.fill_from_torch` refuses as JAX's converter does
-    (ROADMAP.md, section C).
+    ``quant_conv``/``post_quant_conv``; SD3's checkpoint lacks them, and
+    :func:`.convert.fill_from_torch` then loads them as identity with zero
+    bias (:func:`vae_torch_path_map`'s ``missing``), which equals the
+    upstream SD3 VAE that has none.  JAX's converter raises on such a
+    checkpoint instead.
 
     Weights random from ``seed`` as the JAX init lays them out (kernels
     N(0, 1/fan_in), biases 0, GroupNorm scales 1), made on ``device``
@@ -298,3 +301,27 @@ def vae_torch_path_map(path: tuple[str, ...]) -> str:
             seg = "to_out.0"
         parts.append(seg)
     return ".".join(parts)
+
+
+_QUANT_CONVS = ("quant_conv", "post_quant_conv")
+
+
+def _identity_quant_conv(key: str, state_dict, shape: tuple):
+    """``vae_torch_path_map.missing``: the port-layout value of a
+    ``quant_conv``/``post_quant_conv`` key when the state dict holds no key
+    of that conv at all (SD3's VAE): an identity 1x1 kernel, a zero bias.
+    None (so :func:`.convert.fill_from_torch` raises) for any other key,
+    or where the conv is present in part."""
+    conv, _, leaf = key.rpartition(".")
+    if (conv.rpartition(".")[2] not in _QUANT_CONVS
+            or any(k.startswith(conv + ".") for k in state_dict)):
+        return None
+    if leaf == "weight" and len(shape) == 4 and shape[:2] == (1, 1) \
+            and shape[2] == shape[3]:
+        return np.eye(shape[2], dtype=np.float32).reshape(shape)
+    if leaf == "bias" and len(shape) == 1:
+        return np.zeros(shape, np.float32)
+    return None
+
+
+vae_torch_path_map.missing = _identity_quant_conv

@@ -53,12 +53,12 @@ _FA_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
 _SPLASH_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                     + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 6
                     + [ctypes.c_void_p])
-# natdiff_attention_bwd(dtype, d, q, k, v, o, do, lse, delta, dq, dk, dv,
+# natdiff_attention_bwd(dtype, d, q, k, v, o, do, lse, work, dq, dk, dv,
 # s_b, s_h, s_t, o_b, o_h, o_t, d_b, d_h, d_t, g_b, g_h, g_t, B, H, T,
-# scale, stream)
+# scale, path, bkv, bq, stages, smem, stream)
 _BWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
                  + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
-                 + [ctypes.c_float, ctypes.c_void_p])
+                 + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 # --- the kernel's block plan ---------------------------------------------------
 # constants of csrc/attention.cu (the entry checks them): keys per tile,
@@ -93,6 +93,64 @@ def _attn_plan(b: int, h: int, t: int, d: int, dtype) -> dict:
     return dict(warps=warps, bq=bq, stages=stages, smem=smem,
                 grid=(-(-t // bq), b * h), key_tiles=tiles,
                 masked_tiles=[tiles - 1] if t % _BKV else [])
+
+
+# constants of csrc/attention_bwd.cu (its entry checks the plan): rows of
+# the f32 kernels' tiles; of the bf16 mma.sync kernels' (d 16, 32); the
+# wgmma pass (d 64, 72): keys a block (two consumer warpgroups of 64),
+# queries a ring stage, ring stages, columns of a TMA box (one 128-byte
+# swizzled row)
+_BWD_FT, _BWD_BT = 32, 64
+_BWD_BKV, _BWD_BQ, _BWD_STAGES, _BWD_BOX = 128, 64, 2, 64
+_BWD_PATHS = ("fma", "mma", "wgmma")
+
+
+def _bwd_plan(b: int, h: int, t: int, d: int, dtype) -> dict:
+    """The backward's launch plan for ``[b, h, t, d]`` (pure: the CPU tests
+    walk it, and the C entry checks it against its constants).
+
+    * float32: ``"fma"``, the checking path: the delta pre-pass, the dk/dv
+      and the dq kernels on 32-row tiles; ``work`` is delta, ``[b h][t]``.
+    * bfloat16, d 16 or 32: ``"mma"``, the same three launches on 64-row
+      mma.sync tiles.
+    * bfloat16, d 64 or 72: ``"wgmma"``, one pass over key blocks of 128
+      (``grid``), each walking every query tile of 64 through a ring of
+      ``stages``: 5 products a tile pair on ``wgmma``, dq summed in f32
+      ``work`` by bulk reductions; a pre-pass (delta, lse log2 e, the sums
+      zeroed) and a post-pass (dq in bf16).  D rounds up to 16 for the
+      products over it (``dk``: 80 for 72) and takes ``boxes`` TMA boxes
+      of 64 columns; ``tp`` is t rounded up to the query tile; ``work`` is
+      ``[b h][tp]`` twice and ``[b h][tp][d]``; ``smem`` the main kernel's
+      dynamic shared memory.
+    """
+    if t <= 0 or b <= 0 or h <= 0 or d not in _HEAD_DIMS \
+            or b * h > 65535 or dtype not in _DTYPES:
+        raise ValueError(f"attention backward: no plan for "
+                         f"{(b, h, t, d)} {dtype}")
+    if dtype == torch.float32 or d <= 32:
+        rows = _BWD_FT if dtype == torch.float32 else _BWD_BT
+        return dict(path=_BWD_PATHS[0 if dtype == torch.float32 else 1],
+                    bkv=rows, bq=rows, stages=0, smem=0, tp=t,
+                    grid=(-(-t // rows), b * h), work=b * h * t, launches=3)
+    boxes = -(-d // _BWD_BOX)
+    tp = -(-t // _BWD_BQ) * _BWD_BQ
+    kv_tile = boxes * _BWD_BKV * 128          # bytes of K (or V) in shared
+    q_tile = boxes * _BWD_BQ * 128            # ... of a Q (or dO) stage
+    ds, dq = 64 * 128, _BWD_BQ * d * 4        # a warpgroup's dS^T, dQ part
+    smem = (1024 + 2 * kv_tile + 2 * _BWD_STAGES * q_tile + 2 * ds + 2 * dq
+            + 2 * _BWD_STAGES * _BWD_BQ * 4 + (2 * _BWD_STAGES + 1) * 8)
+    return dict(path=_BWD_PATHS[2], bkv=_BWD_BKV, bq=_BWD_BQ,
+                stages=_BWD_STAGES, smem=smem, tp=tp, boxes=boxes,
+                dk=-(-d // 16) * 16, grid=(-(-t // _BWD_BKV), b * h),
+                work=b * h * tp * (d + 2), launches=3)
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan_ints(b: int, h: int, t: int, d: int, dtype) -> tuple:
+    """:func:`_bwd_plan` as the C entry takes it, cached."""
+    p = _bwd_plan(b, h, t, d, dtype)
+    return (p["work"], _BWD_PATHS.index(p["path"]), p["bkv"], p["bq"],
+            p["stages"], p["smem"])
 
 
 @functools.lru_cache(maxsize=256)
@@ -151,6 +209,12 @@ def _rows_ok(x) -> bool:
     """The head dim is contiguous and every row start 16-byte aligned."""
     return (x.stride(3) == 1 and not any(s % 8 for s in x.stride()[:3])
             and x.data_ptr() % 16 == 0)
+
+
+def _tma_ok(x) -> bool:
+    """:func:`_rows_ok` with every stride positive and below 2^39 elements,
+    as a TMA tensor map of the backward's wgmma pass takes them."""
+    return _rows_ok(x) and all(0 < s < 2 ** 39 for s in x.stride()[:3])
 
 
 def _kernel_strides(q, k, v):
@@ -218,10 +282,11 @@ def _launch(q, k, v, sm_scale, lse: bool, what: str):
 
 
 def _launch_bwd(q, k, v, o, do, lse, scale: float, what: str):
-    """One call of ``csrc/attention_bwd.cu`` on CUDA tensors (three
-    launches: the delta pre-pass, the dk/dv kernel, the dq kernel).
-    Returns ``(dq, dk, dv)``, ``[B, H, T, D]`` views of ``[B, T, H, D]``
-    tensors."""
+    """One call of ``csrc/attention_bwd.cu`` on CUDA tensors, three device
+    launches by :func:`_bwd_plan`: in bf16 at d 64 and 72 the pre-pass, the
+    wgmma pass and the dq post-pass; otherwise the delta pre-pass, the
+    dk/dv and the dq kernels.  Returns ``(dq, dk, dv)``, ``[B, H, T, D]``
+    views of ``[B, T, H, D]`` tensors."""
     b, h, t, d = q.shape
     if q.dtype not in _DTYPES or any(a.dtype != q.dtype
                                      for a in (k, v, o, do)):
@@ -237,24 +302,25 @@ def _launch_bwd(q, k, v, o, do, lse, scale: float, what: str):
                          f"{(b, h, t)}, got {tuple(o.shape)}, "
                          f"{tuple(do.shape)}, {tuple(lse.shape)}")
     st = _kernel_strides(q, k, v)
-    if st is None:
+    if st is None or not all(map(_tma_ok, (q, k, v))):
         q, k, v = (a.contiguous() for a in (q, k, v))
         st = q.stride()[:3]
     o = o if _rows_ok(o) else o.contiguous()
-    do = do if _rows_ok(do) else do.contiguous()
+    do = do if _tma_ok(do) else do.contiguous()
     lse = lse.to(torch.float32).contiguous()
-    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    nwork, *plan = _bwd_plan_ints(b, h, t, d, q.dtype)
+    work = torch.empty(nwork, dtype=torch.float32, device=q.device)
     grads = torch.empty((3, b, t, h, d), dtype=q.dtype, device=q.device)
     g = grads[0]
     fn = _cuda.entry("attention_bwd", "natdiff_attention_bwd", _BWD_ARGTYPES)
     with _cuda.on_device(q):
         err = fn(_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), grads[0].data_ptr(), grads[1].data_ptr(),
+                 work.data_ptr(), grads[0].data_ptr(), grads[1].data_ptr(),
                  grads[2].data_ptr(), *st, o.stride(0), o.stride(1),
                  o.stride(2), do.stride(0), do.stride(1), do.stride(2),
                  g.stride(0), g.stride(2), g.stride(1), b, h, t, float(scale),
-                 _cuda.stream_ptr(q))
+                 *plan, _cuda.stream_ptr(q))
     _cuda.check("attention_bwd", err, what)
     return tuple(grads[i].transpose(1, 2) for i in range(3))
 

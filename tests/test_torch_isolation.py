@@ -238,7 +238,8 @@ def test_no_source_imports_jax_or_the_jax_package():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|naturaldiffusion_tpu"
                      r"|optax|orbax)(\.|\s|$)", re.M)
     files = list((ROOT / "naturaldiffusion_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "int8_ablation.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "int8_ablation.py",
+              ROOT / "attention_bwd_ablation.py"]
     assert len(files) > 10
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders

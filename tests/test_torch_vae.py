@@ -136,19 +136,68 @@ def test_fill_from_torch_matches_jax_converter():
     assert rel_l2(got_img.numpy(), want_img.numpy()) < F32_TOL
 
 
-def test_missing_quant_conv_is_refused_as_jax_does():
-    """SD3's checkpoint has no ``quant_conv``: both converters raise."""
+def _twin_without_quant_convs():
     from torch_vae_twin import TorchAutoencoderKL
+    torch.manual_seed(5)
     twin = TorchAutoencoderKL(cin=3, ch=32, mults=(1, 2), layers=1, zc=4)
-    sd = {k: v for k, v in twin.state_dict().items()
-          if not k.startswith("quant_conv")}
-    port = tv.AutoencoderKL(tv.VAEConfig(**SMALL), device="cpu")
-    with pytest.raises(KeyError, match="quant_conv"):
-        fill_from_torch(port, sd, path_map=tv.vae_torch_path_map)
+    return {k: v for k, v in twin.state_dict().items()
+            if not k.startswith(("quant_conv.", "post_quant_conv."))}
+
+
+def test_missing_quant_conv_is_refused_by_jax():
+    """SD3's checkpoint has no ``quant_conv``: JAX's converter raises on
+    it (its comment says such keys are skipped; recorded, not copied)."""
+    sd = _twin_without_quant_convs()
     jmod = jv.AutoencoderKL(config=jv.VAEConfig(**SMALL))
     with pytest.raises(KeyError, match="quant_conv"):
         jfill(jax_params(jmod, np.zeros((1, 8, 8, 3), np.float32)), sd,
               path_map=jv.vae_torch_path_map)
+
+
+def test_missing_quant_conv_loads_as_identity():
+    """The port loads a state dict without ``quant_conv`` and
+    ``post_quant_conv`` as identity 1x1 convs with zero bias: its encode
+    mean and decode equal JAX's with those two convs set so by hand.  Any
+    other missing key, or a conv present in part, still raises."""
+    sd = _twin_without_quant_convs()
+    port = tv.AutoencoderKL(tv.VAEConfig(**SMALL), device="cpu")
+    assert fill_from_torch(port, sd, path_map=tv.vae_torch_path_map) == []
+    zc2 = 2 * port.config.latent_channels
+    np.testing.assert_array_equal(port.quant_conv.kernel.detach().numpy(),
+                                  np.eye(zc2).reshape(1, 1, zc2, zc2))
+    assert not port.post_quant_conv.bias.detach().any()
+    # JAX: the same state dict with the two convs written in by hand
+    hand = dict(sd)
+    for conv, c in (("quant_conv", zc2), ("post_quant_conv", zc2 // 2)):
+        hand[f"{conv}.weight"] = torch.eye(c).reshape(c, c, 1, 1)
+        hand[f"{conv}.bias"] = torch.zeros(c)
+    jmod = jv.AutoencoderKL(config=jv.VAEConfig(**SMALL))
+    params, unused = jfill(jax_params(jmod, np.zeros((1, 8, 8, 3),
+                                                     np.float32)),
+                           hand, path_map=jv.vae_torch_path_map)
+    assert unused == []
+    rng = np.random.default_rng(6)
+    x = rng.uniform(-1, 1, (2, 16, 8, 3)).astype(np.float32)
+    z = rng.standard_normal((2, 4, 3, zc2 // 2)).astype(np.float32)
+    mean, _ = jmod.apply({"params": params}, x,
+                         method=jv.AutoencoderKL.encode)
+    img = jmod.apply({"params": params}, z, method=jv.AutoencoderKL.decode)
+    with torch.no_grad():
+        tmean, _ = port.encode(_t(x))
+        timg = port.decode(_t(z))
+    assert np.abs(np.asarray(img)).max() > 0.1
+    assert rel_l2(tmean.numpy(), np.asarray(mean)) < F32_TOL
+    assert rel_l2(timg.numpy(), np.asarray(img)) < F32_TOL
+    # every other key still raises
+    fresh = tv.AutoencoderKL(tv.VAEConfig(**SMALL), device="cpu")
+    for drop in ("encoder.conv_in.weight", "decoder.conv_out.bias"):
+        with pytest.raises(KeyError, match=drop.rpartition(".")[0]):
+            fill_from_torch(fresh, {k: v for k, v in sd.items()
+                                    if k != drop},
+                            path_map=tv.vae_torch_path_map)
+    part = dict(sd, **{"quant_conv.weight": hand["quant_conv.weight"]})
+    with pytest.raises(KeyError, match="quant_conv.bias"):
+        fill_from_torch(fresh, part, path_map=tv.vae_torch_path_map)
 
 
 def test_create_model_builds_the_vae():
