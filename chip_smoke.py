@@ -6,10 +6,13 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``
 printed as one line with its numbers and seconds as it ends:
 
   env      the card (``nvidia-smi`` name and power limit), torch and CUDA.
-  build    ``nvcc`` builds the kernels of ``naturaldiffusion_tpu_torch/csrc``;
-           prints the registers and spills of every conv3x3.cu,
-           qmatmul.cu, attention.cu, attention_bwd.cu, group_norm.cu and
-           weighted_sum.cu kernel and fails if one spills.
+  build    ``nvcc`` builds the kernels of ``naturaldiffusion_tpu_torch/csrc``
+           (``ops/_nvcc.py``), started before this script imports torch;
+           the phase waits for it and prints each source's own seconds and
+           CPU seconds and the registers and spills of every
+           conv3x3.cu, qmatmul.cu, attention.cu, attention_bwd.cu,
+           group_norm.cu and weighted_sum.cu kernel, and fails if one
+           spills.
   kernels  each kernel against its plain PyTorch version on the card, at
            the shapes the main path gives it (recorded from one batch-64
            forward), then timed (CUDA events, median, L2 flushed) beside the
@@ -28,6 +31,12 @@ printed as one line with its numbers and seconds as it ends:
            ``torch._int_mm`` over an im2col of the int8 input, with its
            TOPS, plan (split, blocks) and registers; then bit for bit at
            ragged shapes of its plan (``INT8_RAGGED``).
+  quant_ops  ``apps.bench_quant_ops --reps 20 --runs 5``: the W8A8 rows
+           (cuDNN bf16, Q1 dynamic, per-tensor, static and on operands
+           quantized beforehand) at the CIFAR conv shapes, the 1x1 rows on
+           ``torch._int_mm`` and the square GEMM, every row timed or its
+           error, Q1's launches; each row at one 3x3 and one NIN shape
+           against its plain version on the CPU.
   routes   one batch-64 CIFAR forward in bf16 under each form of the conv
            switch and the int8 modes (``ROUTE_FORMS``) against the f32
            fused forward, with each form's kernel launches.
@@ -53,12 +62,21 @@ printed as one line with its numbers and seconds as it ends:
            against the plain versions after as many model calls, beside
            its 1 %-off control.  Each drive's launches are checked against
            its forwards' (and NI steps') counts.
+  likelihood  (in the oracle process beside ``entry_points``; printed
+           after it) ``eval.likelihood.get_likelihood_fn`` (RK45 over the
+           probability-flow ODE, the Hutchinson divergence by reverse mode
+           through the kernels' autograd Functions) over the same model,
+           f32, batch 2, at rtol = atol = 1e-3 (JAX's default 1e-5), eps
+           scaled by 0.003, from t = 1e-3: bpd and the latent through the
+           kernels against the plain versions with the same probe, the
+           same nfe, beside a 1 %-off time control; the model calls replay
+           CUDA graphs of its forward and of its backward in x.
   eval     the evaluation modules over the same weights: (a) the FID
            Inception (every leaf random) in f32 on the card against the
            CPU at 32x32, 48x64 and 320x336 (the antialiased resize), pool
            features and logits, then timed at batch 256; (b)
            ``apps.fid_selfcheck.main`` over the full-width CIFAR model at
-           1,024 images and 256 features, its sampling one CUDA-graph
+           512 images and 256 features, its sampling one CUDA-graph
            replay a micro-batch: the app's pass rule, its CSV row, and the
            K1-K3 and K6 launches of the warm-up and capture; (c) PC
            inpainting and colorization (``samplers.controllable``) as the
@@ -86,6 +104,17 @@ printed as one line with its numbers and seconds as it ends:
            ``apps.bench_train`` at batch 128, f32 and bf16, at conv switch
            2 and 0: step ms, img/s, FLOPs, MFU, peak memory, and one
            profiled step (busy share, top kernels).
+  entry_points  the entry points no other phase drives: (a)
+           ``apps.fid_stats`` over the train phase's toy eval binary, mu and
+           sigma against the CPU's; (b) ``apps.degradation`` at its
+           defaults, vp and flow, against the CPU on the same noise; (c)
+           ``apps.roundtrip`` over the train phase's f32 snapshots (toy
+           features, 64 images a snapshot), its CSV against the plain
+           versions' and another seed's, its launches; (d) ``apps.sd3_ni
+           --small`` and ``apps.bench_sd3 --toy`` with every MMDiT weight
+           random, each run's last NI call in f32 against the plain
+           versions (K1, K9) beside K9's output 1 % off, the app's own
+           output (bf16 in bench_sd3) against the f32 plain run.
   bench    the port bench, ``apps.bench``, on one ``Bench`` at its
            defaults (1024 images a dispatch in 16 replays of a CUDA graph
            of one 64-image 10-step run): the wrappers' launch counts around
@@ -136,7 +165,9 @@ printed as one line with its numbers and seconds as it ends:
            step ms, busy share, peak memory; one f32 step's whole-model
            gradient at batch 4 against the plain attention's, beside a
            control without dq, with K9 and again with K10 (``splash``);
-           (3) ``parallel.dryrun.dryrun_multichip(1)``.  The ``train``
+           (3) ``parallel.dryrun.dryrun_multichip(1)``; (4) ring
+           attention's gradient on the 1-rank mesh at DiT-XL/2's attention
+           shape against the plain attention's.  The ``train``
            phase also runs the trainer with ``--fsdp`` against the run
            without it.
   ve_kernels    kernels K4 (halo-tiled conv, serving K5 too) and K6
@@ -206,8 +237,9 @@ printed as one line with its numbers and seconds as it ends:
   conv_model    ``apps.bench_conv --model ve/celebahq_256_ncsnpp_continuous``
            at one forward a run, 2 runs a route.
 
-The CPU oracles of ``slice``, ``dit_forward``, ``ve_forward`` and
-``backbones`` run on a background thread beside the card's phases.  Any
+The CPU oracles of ``slice``, ``dit_forward``, ``ve_forward``,
+``backbones`` and ``entry_points`` run in a child process beside the
+card's phases.  Any
 failure raises and exits non-zero.  The last two lines are the kernels
 JSON and ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -362,6 +394,35 @@ VP_PC_F32_TOL = 1e-3
 # readings) sees a 1 % fault.  More than ODE_MAX_NFE model evaluations
 # fails the phase
 ODE_RTOL, ODE_BATCH, ODE_TOL, ODE_MAX_NFE = 1e-3, 2, 1e-4, 500
+# the likelihood phase: eval/likelihood.py's probability-flow bits/dim
+# (RK45 over the augmented ODE, the Hutchinson divergence by reverse mode
+# through K2/K3/K6's autograd Functions) over the same model as the VP
+# config, f32, at the ode check's cut (rtol = atol = ODE_RTOL, batch
+# ODE_BATCH; JAX's default is 1e-5), data uniform in [-1, 1] and one
+# Rademacher probe from seeds: the kernels against the plain versions on
+# the card with the same probe, bpd (relative) within ODE_TOL, z (relative
+# L2) within LIK_Z_TOL, the same nfe; the plain versions with the time
+# labels 1 % off must move z by at least CONTROL_FACTOR times its limit and
+# bpd past its own.
+# Two more cuts: the model's eps is scaled by LIK_EPS_SCALE and the ODE
+# starts at LIK_T0 (JAX's 1e-5).  With every weight random, the ODE's
+# encoding direction (data to noise) expands small differences: unscaled,
+# the kernels' and the plain versions' z lay 42 % apart after 265 model
+# calls each, bpd 1.8e-3 apart beside a control of 1.9e-3, so no check
+# could see a fault (an H100, this script before the cuts); in
+# likelihood_scan.py's runs the cut run held z of the kernels within 1e-5
+# of the plain versions', where eps scaled alone still moved it up to
+# 2e-3 from one scale to the next.  Each model call replays a CUDA graph
+# of the model's forward or of its backward in x (GraphedVJP; the
+# parameters take no gradient); eager, an nfe's two forwards and backward
+# cost ~0.17 s of host time
+LIK_SEED, LIK_EPS_SCALE, LIK_T0 = SEED + 80, 0.003, 1e-3
+# z, the state after ~67 adaptive steps, varies from run to run with the
+# order of K3's f32 channel sums (atomics): 9.4e-6 (likelihood_scan.py)
+# and 4.5e-5 (this script) against the plain versions on an H100; its
+# limit, with the control at CONTROL_FACTOR times it (the control reads
+# ~0.2)
+LIK_Z_TOL = 1e-3
 
 # the eval phase.  (a) The FID Inception (pytorch-fid's InceptionV3, every
 # leaf random, its BatchNorms too) in f32 on the card against the CPU, at
@@ -374,12 +435,13 @@ EVAL_INCEPTION_SIZES = ((4, 32, 32), (1, 48, 64), (1, 320, 336))
 INCEPTION_TOL = 1e-4
 EVAL_FEAT_BATCH = 256
 # (b) apps.fid_selfcheck on the full-width CIFAR model (random weights, its
-# graphed sampling), cut from 50,000 images and 2048 features to 1,024 and
+# graphed sampling), cut from 50,000 images and 2048 features to 512 and
 # 256 (the run's time limit: 4,096 images took 18.7 s of the phase on an
-# H100, 2,048 9.6 s; 1,024 since the train phase came); the pass rule is
-# the app's (self FID < 2, shifted / self > 50): 2,048 images read a ratio
-# of 15,790 there, 4,096 30,830
-EVAL_SELFCHECK_ARGS = ("--num", "1024", "--batch", "1024", "--micro", "64",
+# H100, 2,048 9.6 s; 1,024 since the train phase came, 512 since the
+# likelihood and entry-point phases came); the pass rule is the app's
+# (self FID < 2, shifted / self > 50): 1,024 images read a ratio of 8,372
+# there, 2,048 15,790, 4,096 30,830
+EVAL_SELFCHECK_ARGS = ("--num", "512", "--batch", "512", "--micro", "64",
                        "--feat-dim", "256", "--feat-batch", "256")
 # the graphed branch of apps.cifar10_ni.make_sampler, which the self-check
 # samples through, against its eager branch over the same model (bf16,
@@ -597,8 +659,9 @@ TRAIN_APP_BATCH, TRAIN_APP_ITERS, TRAIN_SAMPLE_STEPS = 128, 3, 2
 TRAIN_RESUME_TOL = 1e-5
 # (6) apps.bench_train at batch 128, f32 and bf16, under the port's switch 2
 # (K3, K2, K6) and 0 (cuDNN forward, K6): one step a timed run, the median
-# of 3 runs; FLOPs per step counted on the CPU before the phase
-BENCH_TRAIN_ARGS = ("--batch", "128", "--chain", "1", "--runs", "3")
+# of 2 runs (3 until the likelihood and entry-point phases came); FLOPs
+# per step counted on the CPU before the phase
+BENCH_TRAIN_ARGS = ("--batch", "128", "--chain", "1", "--runs", "2")
 
 # the CPU oracles (float32 forwards and samplers on the host that the
 # card's runs are held against) run in one child process beside the
@@ -606,8 +669,52 @@ BENCH_TRAIN_ARGS = ("--batch", "128", "--chain", "1", "--runs", "3")
 # order, each with this many intra-op threads of the host's 8 cores: the
 # first two are awaited a few seconds after the build, the rest run beside
 # host-bound phases (samplers, eval), whose launches need the cores
-ORACLE_JOBS = {"forward": 4, "slice": 4, "inception": 2, "dit": 2, "ve": 2,
-               "ddpm": 2}
+ORACLE_JOBS = {"forward": 4, "slice": 4, "inception": 2, "fid_stats": 2,
+               "dit": 2, "ve": 2, "ddpm": 2, "refinenets": 2}
+
+# the entry-points phase (after train, on its toy data and f32 workdir).
+# fid_stats over the toy eval binary (TOY_ARGS: the train phase's), its mu
+# and sigma on the card against the CPU oracle's (the Inception's
+# FORWARD_TOL: relative L2), a train binary's as the control.  degradation at its defaults, vp and flow, on
+# the card: its printed numbers (4 decimals) against the CPU's on the
+# card's noise draw within DEG_TOL (P(own > 0.9) is a count of 512: two
+# samples across 0.9 move it 3.9e-3), each schedule index 1 % off as the
+# control.
+# roundtrip over the trainer's snapshots (--features toy), its
+# CSV rows against the plain versions' (K1, K2, K3, K6 plain; snapshot 0)
+# within RT_TOL relative, beside the control of another sampling seed
+# (after 3 steps the model's head is still NCSN++'s zero init, so the
+# samples do not depend on the kernels, which run on the path, counted).
+# sd3_ni --small and bench_sd3 --toy (the JAX apps' small MMDiTs), each
+# run's last NI call captured and repeated in f32 through the kernels and
+# the plain versions (K1, K9 plain) within SD3_F32_TOL, K9's output 1 % off
+# as the control; the app's own output against the f32 plain run within
+# SD3_APP_TOL (bench_sd3 runs its MMDiT in bf16, whose rounding over 28
+# steps, 6.4e-3 against the bf16 plain versions on an H100, hides a 1 %
+# fault of K9: 7.1e-3)
+TOY_EVAL = 128
+# fid_stats reads the first FID_STATS_N records: the CPU oracle's
+# Inception costs ~0.17 CPU-s an image
+FID_STATS_N = 32
+TOY_ARGS = ("--n-train", str(TRAIN_APP_BATCH * 10), "--n-eval",
+            str(TOY_EVAL))
+DEG_TOL = 5e-3
+RT_ARGS = ("--features", "toy", "--num", "64", "--batch", "64", "--micro",
+           "64", "--eval-n", str(TOY_EVAL))
+RT_TOL = 1e-3
+SD3_APP_TOL, SD3_F32_TOL = {"sd3_ni": 1e-4, "bench_sd3": 2e-2}, 1e-4
+# bench_sd3 --toy's MMDiT (JAX's) holds a 16 x 16 table of positions: with
+# patches of 2, latents up to 32
+SD3_TOY_LATENT = 32
+# the W8A8 micro-bench apps.bench_quant_ops, as the reproduction driver
+# runs it; each row at its last 3x3 shape against its plain version on the
+# CPU (the int8 rows within one bf16 rounding, bf16 within BF16 limits)
+QUANT_OPS_ARGS = ("--reps", "20", "--runs", "5")
+# the ring-attention gradient (parallel phase) at DiT-XL/2's attention
+# shape, f32, on the card's 1-rank mesh against autograd through the plain
+# attention: relative L2 of dq, dk, dv within PAR_GRAD_TOL; sm_scale 1 %
+# off as the control
+RING_SHAPE = (4, 16, 256, 72)
 
 T0 = time.perf_counter()
 
@@ -759,7 +866,7 @@ def oracle_job(name):
     (the noises the phases draw on the card drawn there the same way):
     numpy outputs and the CPU seconds."""
     import torch
-    torch.set_num_threads(ORACLE_JOBS[name])
+    torch.set_num_threads(ORACLE_JOBS.get(name, 2))
     torch.set_grad_enabled(False)
     t = time.perf_counter()
     if name == "forward":
@@ -788,6 +895,27 @@ def oracle_job(name):
                                            cfg.in_channels).numpy(),
                           time.perf_counter() - tq)
         return out, time.perf_counter() - t
+    elif name == "fid_stats":
+        import tempfile
+        import numpy as np
+        from naturaldiffusion_tpu_torch.apps import fid_stats, toy_dataset
+        with tempfile.TemporaryDirectory() as d, \
+                contextlib.redirect_stdout(io.StringIO()):
+            toy_dataset.main(["--out", d, *TOY_ARGS])
+            fid_stats.main(["--data", os.path.join(d, "test_batch.bin"),
+                            "--out", os.path.join(d, "s.npz"), "--batch",
+                            "64", "--limit", str(FID_STATS_N), "--device",
+                            "cpu"])
+            with np.load(os.path.join(d, "s.npz")) as f:
+                out = (torch.from_numpy(f["mu"]),
+                       torch.from_numpy(f["sigma"]))
+    elif name == "likelihood":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return likelihood_run(_cifar_cpu()), time.perf_counter() - t
+    elif name == "refinenets":
+        out = tuple(model(x, lab) for (_, model), x, lab in
+                    refinenet_inputs(torch))
     elif name == "ve":
         out = ve_model(SEED + 20)[1](*ve_input(torch))
     elif name == "ddpm":
@@ -822,11 +950,18 @@ class Oracles:
         self.jobs = {n: self.pool.submit(oracle_job, n) for n in ORACLE_JOBS}
         atexit.register(self.stop)
 
-    def get(self, name):
+    def submit(self, name):
+        """Queue ``name`` (a job of ``oracle_job`` outside ORACLE_JOBS)
+        after the jobs queued before it."""
+        self.jobs[name] = self.pool.submit(oracle_job, name)
+
+    def get(self, name, raw=False):
         import torch
         tw = time.perf_counter()
         out, secs = self.jobs.pop(name).result()
         wait = time.perf_counter() - tw
+        if raw:
+            return out, secs, wait
         if isinstance(out, dict):
             out = {k: (torch.from_numpy(v), s) for k, (v, s) in out.items()}
         elif isinstance(out, tuple):
@@ -858,10 +993,27 @@ def phase_env():
     return smi
 
 
-def phase_build():
+class EarlyBuild:
+    """The kernels' build (``ops/_nvcc.py``, which imports no torch),
+    started on a thread before this process imports torch, so that nvcc
+    runs beside torch's import and the card's set-up."""
+
+    def __init__(self):
+        from naturaldiffusion_tpu_torch.ops import _nvcc
+        self.cpu, self.t0 = {}, time.perf_counter()
+        self.future = concurrent.futures.ThreadPoolExecutor(1).submit(
+            _nvcc.build, cpu_seconds=self.cpu)
+
+
+def phase_build(early):
+    """Waits for the early build, then reads its logs.  ``nvcc_seconds``:
+    when each library was ready, from the build's start; ``build_wall_s``:
+    the whole build's."""
     t = time.perf_counter()
     from naturaldiffusion_tpu_torch.ops import _cuda
-    secs = _cuda.build()
+    secs = early.future.result()
+    wall = time.perf_counter() - early.t0
+    cpu = early.cpu
     ptxas = {}
     for name in secs:
         # the distinct register / shared-memory / spill lines of the source
@@ -882,7 +1034,8 @@ def phase_build():
             print(f"  ptxas {src} {fn}: {regs} registers, {spill} bytes "
                   f"spilled", flush=True)
         spills[src] = (len(kern), sum(spill for _, _, spill in kern))
-    phase("build", t, nvcc_seconds=secs, ptxas=ptxas,
+    phase("build", t, build_wall_s=wall, nvcc_seconds=secs,
+          nvcc_cpu_seconds=cpu, ptxas=ptxas,
           kernels_and_spill_bytes=spills, wgmma_serialized=wgmma_notes)
     if any(n == 0 or spilled for n, spilled in spills.values()):
         raise AssertionError(f"no ptxas lines, or a kernel spills: {spills}")
@@ -1367,26 +1520,90 @@ class GraphedForward:
         return self.out.clone()
 
 
+class _Replayed:
+    """The autograd Function of :class:`GraphedVJP` (made at first use:
+    torch is imported inside the script's functions)."""
+    fn = None
+
+    @classmethod
+    def get(cls):
+        import torch
+        if cls.fn is None:
+            class Fn(torch.autograd.Function):
+                @staticmethod
+                def forward(ctx, x, t, owner):
+                    # the likelihood evaluates each state twice (the drift,
+                    # then the divergence): the second call replays nothing
+                    if not (owner.calls and torch.equal(x, owner.x)
+                            and torch.equal(t, owner.t)):
+                        owner.x.copy_(x)
+                        owner.t.copy_(t)
+                        owner.fwd.replay()
+                        owner.replays += 1
+                    owner.calls += 1
+                    ctx.owner, ctx.replay = owner, owner.replays
+                    return owner.out.detach().clone()
+
+                @staticmethod
+                def backward(ctx, g):
+                    o = ctx.owner
+                    if o.replays != ctx.replay:
+                        raise RuntimeError("GraphedVJP: another input "
+                                           "replaced this call's")
+                    o.g.copy_(g)
+                    o.bwd.replay()
+                    return o.gx.clone(), None, None
+            cls.fn = Fn
+        return cls.fn
+
+
+class GraphedVJP:
+    """``net(x, t)`` at one input shape as CUDA-graph replays that autograd
+    differentiates in x: a captured forward with grad mode on (its saved
+    activations live in the graph's pool) and a captured backward of it for
+    a cotangent, under whatever routes are in force at the first call,
+    which warms ``net`` up on a side stream and captures.  A call with the
+    inputs of the one before replays nothing; a backward must follow its
+    call before another input comes (the likelihood's divergence does)."""
+
+    def __init__(self, net):
+        self.net, self.fwd, self.calls, self.replays = net, None, 0, 0
+
+    def _capture(self, x, t):
+        import torch
+        self.x, self.t = x.detach().clone(), t.detach().clone()
+        self.xg = self.x.detach().requires_grad_()       # the same storage
+        self.g = torch.zeros_like(self.x)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), torch.enable_grad():
+            torch.autograd.grad(self.net(self.xg, self.t), self.xg, self.g)
+        torch.cuda.current_stream().wait_stream(side)
+        self.fwd, self.bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.fwd), torch.enable_grad():
+            self.out = self.net(self.xg, self.t)
+        with torch.cuda.graph(self.bwd, pool=self.fwd.pool()):
+            self.gx = torch.autograd.grad(self.out, self.xg, self.g,
+                                          retain_graph=True)[0]
+
+    def __call__(self, x, t):
+        if self.fwd is None:
+            self._capture(x, t)
+        return _Replayed.get().apply(x, t, self)
+
+
 def slice_controls(model_f32, matrix, init, noises):
     """Two runs beside the slice check, on its first 2 samples: the same
     bf16 run through the plain versions on the card (what bf16 alone
     costs), and through the kernels with the time conditioning 1 % off (a
     small fault).  The caller holds both against the CPU float32 run."""
-    import importlib
     import torch
     from naturaldiffusion_tpu_torch.apps.cifar10_ni import make_sampler
-    from naturaldiffusion_tpu_torch.ops import weighted_sum as WS
-    ni = importlib.import_module("naturaldiffusion_tpu_torch.engine.ni")
 
-    saved = ni.fused_weighted_sum
-    ni.fused_weighted_sum = WS.fused_weighted_sum_reference
-    try:
-        with plain_convs_and_norms():
-            plain = make_sampler(model_f32, matrix, micro=BATCH,
-                                 dtype=torch.bfloat16, device="cuda")(
-                init, noises=noises)
-    finally:
-        ni.fused_weighted_sum = saved
+    with plain_ni_convs_and_norms():
+        plain = make_sampler(model_f32, matrix, micro=BATCH,
+                             dtype=torch.bfloat16, device="cuda")(
+            init, noises=noises)
 
     class TimeOff(torch.nn.Module):
         def __init__(self, inner):
@@ -1852,6 +2069,93 @@ def phase_samplers(model_f32, n_plain, n_gn, n_k6, smi):
     return drive.total
 
 
+def likelihood_run(model_f32):
+    """``eval.likelihood.get_likelihood_fn`` over the CIFAR model (see
+    LIK_SEED): the kernels against the plain versions on the card with the
+    same data and probe, and the plain versions' time-off control; the
+    numbers and the launches of the kernels' run (its warm-up and capture)
+    beside the launches it must have."""
+    import torch
+    from naturaldiffusion_tpu_torch import configs
+    from naturaldiffusion_tpu_torch.eval.likelihood import get_likelihood_fn
+    from naturaldiffusion_tpu_torch.scaler import get_inverse_scaler
+    from naturaldiffusion_tpu_torch.sde import VPSDE, get_score_fn
+
+    cfg = configs.get_config(SAMPLERS_CONFIG)
+    sde = VPSDE()
+    net32 = copy.deepcopy(model_f32).to("cuda").eval().requires_grad_(False)
+    per_fwd = per_forward_counts(net32, torch.float32, ODE_BATCH)
+    gen = torch.Generator(device="cuda").manual_seed(LIK_SEED)
+    data = torch.rand((ODE_BATCH, 32, 32, 3), generator=gen,
+                      device="cuda") * 2 - 1
+    probe = torch.randint(0, 2, data.shape, generator=gen,
+                          device="cuda") * 2.0 - 1.0
+
+    def run(g, scale=1.0):
+        lik = get_likelihood_fn(
+            sde, get_score_fn(sde, lambda x, lab: LIK_EPS_SCALE
+                              * g(x, lab * scale)),
+            rtol=ODE_RTOL, atol=ODE_RTOL, eps=LIK_T0,
+            inverse_scaler=get_inverse_scaler(cfg.model.centered))
+        tr = time.perf_counter()
+        bpd, z, nfe = lik(None, data, probe=probe)
+        torch.cuda.synchronize()
+        return bpd, z, nfe, time.perf_counter() - tr
+
+    counters = bench_counters()
+    zero_counts(counters)
+    kern = GraphedVJP(net32)
+    bpd, z, nfe, wall = run(kern)
+    launches = read_counts(counters)
+    with plain_convs_and_norms():
+        plain = GraphedVJP(net32)
+        bpd_p, z_p, nfe_p, wall_p = run(plain)
+    bpd_c, z_c, nfe_c, _ = run(plain, 1.01)
+    del kern, plain, net32
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs()).max())
+    return dict(config=SAMPLERS_CONFIG, batch=ODE_BATCH, rtol=ODE_RTOL,
+                atol=ODE_RTOL, rtol_jax_default=1e-5,
+                reduction=f"rtol = atol = {ODE_RTOL:g} instead of 1e-5; eps "
+                          f"scaled by {LIK_EPS_SCALE:g}; the ODE from "
+                          f"t = {LIK_T0:g} instead of 1e-5",
+                finite=bool(torch.isfinite(bpd).all()
+                            and torch.isfinite(z).all()),
+                bpd=bpd.tolist(), bpd_plain=bpd_p.tolist(), nfe=nfe,
+                nfe_plain=nfe_p, nfe_control=nfe_c,
+                bpd_rel_err=rel(bpd, bpd_p), z_rel_l2=rel_l2(z, z_p),
+                tol=ODE_TOL, z_tol=LIK_Z_TOL, control_time_1pct_off=dict(
+                    bpd_rel_err=rel(bpd_c, bpd_p),
+                    z_rel_l2=rel_l2(z_c, z_p)),
+                kernels_run_s=wall, plain_run_s=wall_p, launches=launches,
+                # the warm-up and the capture of the forward (its backward
+                # launches no kernel: cuDNN's)
+                launches_wanted=expect_counts(per_fwd, 2))
+
+
+def phase_likelihood(oracles, smi):
+    """The likelihood check (``likelihood_run``), run in the oracle process
+    beside ``entry_points`` (a check whose graph replays keep the card
+    busy while that phase's apps keep the host busy): its numbers held to
+    their limits.  Returns the launches of the kernels' run."""
+    t0 = time.perf_counter()
+    res, secs, wait = oracles.get("likelihood", raw=True)
+    res = dict(res, seconds_in_oracle_process=secs, waited_s=wait)
+    print(f"  likelihood: {json.dumps(res)}", flush=True)
+    ctl = res["control_time_1pct_off"]
+    if not (res["finite"] and res["launches"] == res["launches_wanted"]
+            and res["nfe"] == res["nfe_plain"]
+            and res["bpd_rel_err"] <= ODE_TOL
+            and res["z_rel_l2"] <= LIK_Z_TOL
+            and ctl["z_rel_l2"] >= CONTROL_FACTOR * LIK_Z_TOL
+            and ctl["bpd_rel_err"] > ODE_TOL):
+        raise AssertionError(f"likelihood: {res}")
+    phase("likelihood", t0, card=smi, **res)
+    return res["launches"]
+
+
 def inception_model():
     """The FID Inception with every leaf random (its BatchNorms too), on the
     CPU."""
@@ -1943,7 +2247,7 @@ def eval_selfcheck(model_f32, n_plain, n_gn, n_k6):
         raise AssertionError(f"eval fid_selfcheck: rc {rc}, launches {got} "
                              f"!= {want}, row {row}")
     return dict(row=row, args=list(EVAL_SELFCHECK_ARGS),
-                reduction="1,024 images of 50,000, 256 of 2048 features"), got
+                reduction="512 images of 50,000, 256 of 2048 features"), got
 
 
 def eval_graphed_sampler(model_f32):
@@ -2334,22 +2638,21 @@ def train_state_leaves(st):
             st.ema.shadow)
 
 
-def train_app_runs(per_fwd):
+def train_app_runs(per_fwd, tmp):
     """(5) ``apps.train`` on a toy binary: per type the uninterrupted run
     with its snapshots at iterations 1 and 2 (in f32 with their sample
     grids, and its launches counted); in f32 then a run whose
     ``checkpoints-meta`` is the step-2 snapshot (hard links), resumed to
-    the end, against it."""
-    import tempfile
+    the end, against it.  ``tmp`` keeps the toy data (``toy``) and the f32
+    run's workdir (``f32_whole``) for the entry-points phase."""
+    import shutil
     import torch
     from naturaldiffusion_tpu_torch.apps import toy_dataset
     from naturaldiffusion_tpu_torch.apps import train as TA
     res, launches = {}, None
-    with tempfile.TemporaryDirectory() as tmp, \
-            contextlib.redirect_stdout(io.StringIO()) as log:
+    with contextlib.redirect_stdout(io.StringIO()) as log:
         data = os.path.join(tmp, "toy")
-        toy_dataset.main(["--out", data, "--n-train",
-                          str(TRAIN_APP_BATCH * 10), "--n-eval", "128"])
+        toy_dataset.main(["--out", data, *TOY_ARGS])
         for kind in ("f32", "bf16"):
             common = ["--data-dir", data, "--batch", str(TRAIN_APP_BATCH),
                       "--snapshot-freq", "1", "--preemption-freq", "1000000",
@@ -2427,6 +2730,8 @@ def train_app_runs(per_fwd):
                 raise AssertionError(f"train app --fsdp: {res[kind]}")
             del whole, resumed, sharded
             torch.cuda.empty_cache()
+            for d in (cut_dir, os.path.join(tmp, f"{kind}_fsdp")):
+                shutil.rmtree(d, ignore_errors=True)
     if "start step 2" not in log.getvalue():
         raise AssertionError("train app: the resumed run did not start at "
                              "step 2")
@@ -2466,7 +2771,11 @@ def train_bench(flops):
 def phase_train(model_f32, smi, train_flops):
     """The training slice: (1) each kernel's backward, (2) the whole-model
     gradient, (3) optimizer steps, (4) launches, (5) the trainer, (6) the
-    bench (see the constants)."""
+    bench (see the constants).  Returns the trainer's launches, the bench's
+    rows and the directory of the toy data and the f32 run's snapshots
+    (the caller removes it)."""
+    import shutil
+    import tempfile
     import torch
     from naturaldiffusion_tpu_torch.ops import conv3x3 as C
     from naturaldiffusion_tpu_torch.ops import group_norm as G
@@ -2494,7 +2803,13 @@ def phase_train(model_f32, smi, train_flops):
     worst = {d: max(max(r[2]) for r in rr) for d, rr in rows.items()}
     controls = max(max(r[3]) for r in rows["torch.bfloat16"])
     tp = time.perf_counter()
-    app, launches = train_app_runs(per_fwd)
+    tmp = tempfile.mkdtemp(prefix="natdiff_train_")
+    try:
+        app, launches = train_app_runs(per_fwd, tmp)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    shutil.rmtree(os.path.join(tmp, "bf16_whole"), ignore_errors=True)
     parts["train_app"] = time.perf_counter() - tp
     tp = time.perf_counter()
     bench = train_bench(int(train_flops.result()))
@@ -2508,7 +2823,288 @@ def phase_train(model_f32, smi, train_flops):
               rows=rows),
           model_check=model_chk, optimizer_steps=opt, train_app=app,
           bench_train=bench, launches=launches, seconds_by_part=parts)
-    return launches, bench
+    return launches, bench, tmp
+
+
+@contextlib.contextmanager
+def last_call(module, name):
+    """Within the block, each call of ``module.<name>`` is recorded: the
+    yielded dict holds the last one's ``args``, ``kwargs`` and ``out``."""
+    saved, rec = getattr(module, name), {}
+
+    def recorded(*args, **kwargs):
+        out = saved(*args, **kwargs)
+        rec.update(args=args, kwargs=kwargs, out=out)
+        return out
+    setattr(module, name, recorded)
+    try:
+        yield rec
+    finally:
+        setattr(module, name, saved)
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+@contextlib.contextmanager
+def k9_off(factor=1.01):
+    """Within the block, K9's output is ``factor`` times too large (a 1 %
+    fault, the control of a check that runs K9)."""
+    from naturaldiffusion_tpu_torch.ops import attention as A
+    saved = A.flash_attention
+
+    def off(*a, **k):
+        return saved(*a, **k) * factor
+    off.launches = 0                # the wrapper counts under its own name
+    with patched(A, "flash_attention", off):
+        yield
+
+
+@contextlib.contextmanager
+def plain_ni_convs_and_norms():
+    """``plain_convs_and_norms`` and K1's plain version."""
+    import importlib
+    from naturaldiffusion_tpu_torch.ops import weighted_sum as WS
+    ni = importlib.import_module("naturaldiffusion_tpu_torch.engine.ni")
+    with patched(ni, "fused_weighted_sum", WS.fused_weighted_sum_reference), \
+            plain_convs_and_norms():
+        yield
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured: (result, lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+def entry_fid_stats(tmp, oracles):
+    """``apps.fid_stats`` over the toy eval binary on the card against the
+    CPU oracle's statistics, the control a train binary's."""
+    import numpy as np
+    import torch
+    from naturaldiffusion_tpu_torch.apps import fid_stats
+
+    def stats(data):
+        out = os.path.join(tmp, "stats.npz")
+        rc, lines = quiet(fid_stats.main, ["--data", data, "--out", out,
+                                           "--batch", "64", "--limit",
+                                           str(FID_STATS_N)])
+        with np.load(out) as f:
+            return (rc, lines, torch.from_numpy(f["mu"]),
+                    torch.from_numpy(f["sigma"]))
+    toy = os.path.join(tmp, "toy")
+    rc, lines, mu, sigma = stats(os.path.join(toy, "test_batch.bin"))
+    _, _, mu_c, _ = stats(os.path.join(toy, "data_batch_1.bin"))
+    (mu_w, sigma_w), cpu_s, wait = oracles.get("fid_stats")
+    res = dict(lines=lines, mu_rel_l2=rel_l2(mu, mu_w),
+               sigma_rel_l2=rel_l2(sigma, sigma_w), tol=FORWARD_TOL,
+               control_train_records_mu_rel_l2=rel_l2(mu_c, mu_w),
+               cpu_oracle_s=cpu_s, cpu_oracle_wait=wait)
+    print(f"  fid_stats: {json.dumps(res)}", flush=True)
+    if not (rc == 0 and res["mu_rel_l2"] <= FORWARD_TOL
+            and res["sigma_rel_l2"] <= FORWARD_TOL
+            and res["control_train_records_mu_rel_l2"]
+            >= CONTROL_FACTOR * FORWARD_TOL):
+        raise AssertionError(f"fid_stats: {res}")
+    return res
+
+
+DEG_LINE = re.compile(r"(\w+) t=(\d+)\s+own-x0 mass mean=([\d.]+) "
+                      r"P\(own>0.9\)=([\d.]+) max-prob mean=([\d.]+)")
+
+
+def entry_degradation():
+    """``apps.degradation`` at its defaults on the card, vp and flow: its
+    printed numbers against the CPU's on the card's noise draw, beside the
+    control of each schedule index 1 % off."""
+    import numpy as np
+    import torch
+    from naturaldiffusion_tpu_torch.apps import degradation as D
+    # the app's synthetic feature set and its default noise draw (seed 200)
+    # on the card, for the CPU's run
+    feats = np.random.default_rng(0).standard_normal((512, 256)).astype(
+        np.float32)
+
+    def draw(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(feats.shape, generator=g, device="cuda").cpu()
+
+    def numbers(kind, t, noise):
+        diag, mx = D.posterior_stats(feats, t, kind=kind, noise=noise.numpy(),
+                                     device="cpu")
+        return [float(diag.mean()), float((diag > 0.9).double().mean()),
+                float(mx.mean())]
+    res = {}
+    for kind in ("vp", "flow"):
+        rc, lines = quiet(D.main, ["--kind", kind])
+        got = [DEG_LINE.match(ln).groups() for ln in lines]
+        err = ctl = 0.0
+        noise = draw(200)
+        for _, t, *vals in got:
+            card = [float(v) for v in vals]
+            want = numbers(kind, int(t), noise)
+            other = numbers(kind, round(int(t) * 1.01), noise)
+            err = max(err, max(abs(a - b) for a, b in zip(card, want)))
+            ctl = max(ctl, max(abs(a - b) for a, b in zip(card, other)))
+        res[kind] = dict(lines=lines, max_abs_err=err,
+                         control_t_1pct_off_max_abs=ctl)
+        if not (rc == 0 and len(got) == 8 and err <= DEG_TOL < ctl):
+            raise AssertionError(f"degradation {kind}: {res[kind]}, limit "
+                                 f"{DEG_TOL:g}")
+    print(f"  degradation: {json.dumps(res)}", flush=True)
+    return dict(res, tol=DEG_TOL)
+
+
+def entry_roundtrip(tmp, n_plain, n_gn, n_k6):
+    """``apps.roundtrip`` over the train phase's f32 snapshots: its CSV
+    rows, snapshot 0's against the plain versions' run and another
+    sampling seed's (the control); the launches of its NI runs."""
+    import csv
+    from naturaldiffusion_tpu_torch.apps import roundtrip as RT
+    common = ["--workdir", os.path.join(tmp, "f32_whole"), "--data-dir",
+              os.path.join(tmp, "toy"), *RT_ARGS,
+              "--grid-dir", os.path.join(tmp, "grids")]
+
+    def run(name, *extra):
+        out = os.path.join(tmp, f"rt_{name}.csv")
+        rc, lines = quiet(RT.main, common + ["--out", out, *extra])
+        with open(out) as fh:
+            return rc, lines, {int(r["step"]): r for r in csv.DictReader(fh)}
+    counters = bench_counters()
+    zero_counts(counters)
+    tr = time.perf_counter()
+    rc, lines, rows = run("kernels")
+    wall = time.perf_counter() - tr
+    launches = read_counts(counters)
+    snaps = sorted(rows)
+    want = expect_counts({"fused_weighted_sum": 0, "conv3x3": n_plain,
+                          "conv3x3_gn": n_gn, "conv3x3_tiled": 0,
+                          "fused_group_norm": n_k6},
+                         STEPS * len(snaps), k1=STEPS * len(snaps))
+    # snapshot 0 (the init, restored from no checkpoint) through the plain
+    # versions, and with another sampling seed as the control
+    with plain_ni_convs_and_norms():
+        _, _, plain = run("plain", "--snapshots", "0")
+    _, _, ctl = run("control", "--snapshots", "0", "--seed", "889")
+    keys = [k for k in rows[0] if k == "fid" or (k.startswith("w1_")
+                                                 and not k.endswith("floor"))]
+
+    def worst(a, b):
+        return max(abs(float(a[k]) - float(b[k]))
+                   / max(abs(float(b[k])), 1e-3) for k in keys)
+    res = dict(snapshots=snaps, rows=[rows[s] for s in snaps],
+               rel_err_vs_plain=worst(rows[0], plain[0]), tol=RT_TOL,
+               control_other_seed_rel=worst(ctl[0], plain[0]),
+               wall_s=wall, launches=launches)
+    print(f"  roundtrip: {json.dumps(res)}", flush=True)
+    if not (rc == 0 and snaps == [0, 1, 2] and launches == want
+            and all(rows[s]["finite"] == "True" for s in snaps)
+            and res["rel_err_vs_plain"] <= RT_TOL
+            and res["control_other_seed_rel"] >= CONTROL_FACTOR * RT_TOL):
+        raise AssertionError(f"roundtrip: {res}, launches want {want}")
+    return res, launches
+
+
+def entry_sd3_app(name, argv, tol):
+    """``apps.<name>`` (sd3_ni or bench_sd3) with its MMDiT's every weight
+    random (the JAX init zeroes the output layers, which would hide the
+    attention), its last NI call repeated in f32 (a bf16 model cast, as
+    bench_sd3's) through the kernels, the plain versions and with K9's
+    output 1 % off; the app's own output against the f32 plain run within
+    ``tol``.  Returns the numbers and the launches."""
+    import importlib
+    import torch
+    from naturaldiffusion_tpu_torch.models.mmdit import MMDiT
+    app = importlib.import_module(f"naturaldiffusion_tpu_torch.apps.{name}")
+
+    def seeded(*a, **k):
+        return randomize_dit_(MMDiT(*a, **k), SEED + 90)
+    counters = dit_counters()
+    zero_counts(counters)
+    tr = time.perf_counter()
+    with patched(app, "MMDiT", seeded), \
+            last_call(app, "sd3_natural_inference") as rec:
+        rc, lines = quiet(app.main, argv)
+    wall = time.perf_counter() - tr
+    launches = read_counts(counters)
+
+    def f32(a):
+        if isinstance(a, torch.nn.Module):
+            return copy.deepcopy(a).float()
+        if torch.is_tensor(a) and a.is_floating_point():
+            return a.float()
+        return a
+    again = functools.partial(app.sd3_natural_inference,
+                              *map(f32, rec["args"]),
+                              **{k: f32(v) for k, v in rec["kwargs"].items()})
+    with plain_versions():
+        want = again()
+    got = again()
+    with k9_off():
+        ctl = again()
+    out = rec["out"]
+    model = rec["args"][0]
+    res = dict(lines=lines, model_dtype=str(next(model.parameters()).dtype),
+               rel_l2_app_vs_f32_plain=rel_l2(out, want), tol=tol,
+               rel_l2_f32_vs_plain=rel_l2(got, want), tol_f32=SD3_F32_TOL,
+               control_k9_1pct_off_rel_l2=rel_l2(ctl, want),
+               wall_s=wall, launches=launches)
+    print(f"  {name}: {json.dumps(res)}", flush=True)
+    if not (rc == 0 and bool(torch.isfinite(out.float()).all())
+            and launches["fused_weighted_sum"] > 0
+            and launches["flash_attention"] > 0
+            and res["rel_l2_app_vs_f32_plain"] <= tol
+            and res["rel_l2_f32_vs_plain"] <= SD3_F32_TOL
+            < res["control_k9_1pct_off_rel_l2"]):
+        raise AssertionError(f"{name}: {res}")
+    return res, launches
+
+
+def phase_entry_points(tmp, oracles, n_plain, n_gn, n_k6, smi):
+    """The entry points no other phase drives (see TOY_ARGS):
+    ``fid_stats``, ``degradation``, ``roundtrip``, ``sd3_ni --small`` and
+    ``bench_sd3 --toy``.  ``tmp``: the train phase's directory (its toy
+    data and f32 workdir), removed here.  Returns the launches by app."""
+    import shutil
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    parts, res, launches = {}, {}, {}
+    try:
+        res["fid_stats"] = entry_fid_stats(tmp, oracles)
+        parts["fid_stats"] = time.perf_counter() - t0
+        tp = time.perf_counter()
+        res["degradation"] = entry_degradation()
+        parts["degradation"] = time.perf_counter() - tp
+        tp = time.perf_counter()
+        res["roundtrip"], launches["roundtrip"] = entry_roundtrip(
+            tmp, n_plain, n_gn, n_k6)
+        parts["roundtrip"] = time.perf_counter() - tp
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="natdiff_") as d:
+        tp = time.perf_counter()
+        res["sd3_ni"], launches["sd3_ni"] = entry_sd3_app(
+            "sd3_ni", ["--small", "--outdir", d], SD3_APP_TOL["sd3_ni"])
+        parts["sd3_ni"] = time.perf_counter() - tp
+    tp = time.perf_counter()
+    res["bench_sd3"], launches["bench_sd3"] = entry_sd3_app(
+        "bench_sd3", ["--toy", "--latent", str(SD3_TOY_LATENT)],
+        SD3_APP_TOL["bench_sd3"])
+    parts["bench_sd3"] = time.perf_counter() - tp
+    torch.cuda.empty_cache()
+    phase("entry_points", t0, card=smi, **res, seconds_by_part=parts)
+    return launches
 
 
 def bench_counters():
@@ -2940,6 +3536,80 @@ def phase_int8_kernels(model_bf16, details):
     return entry, n_int8
 
 
+def phase_quant_ops(smi):
+    """``apps.bench_quant_ops`` (QUANT_OPS_ARGS) on the card: a JSON line a
+    shape, every row timed or its error, Q1's launches counted; then each
+    row at a 3x3 and a NIN shape against its plain version on the CPU.
+    Returns (Q1's launches, the lines)."""
+    import torch
+    from naturaldiffusion_tpu_torch.apps import bench_quant_ops as BQ
+    from naturaldiffusion_tpu_torch.ops import quant as Q
+
+    t0 = time.perf_counter()
+    counters = {"conv3x3_int8": Q.conv3x3_int8}
+    zero_counts(counters)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = BQ.main(list(QUANT_OPS_ARGS))
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    rows = {"conv": ("bf16", "int8_dyn", "int8_pt", "int8_st", "int8_raw"),
+            "nin": ("bf16", "int8_dyn", "int8_st"),
+            "gemm": ("bf16", "int8_raw")}
+    want_shapes = ([["gemm", BQ.GEMM_N, BQ.GEMM_N, BQ.GEMM_N]]
+                   + [list(sh) for sh in BQ.SHAPES]
+                   + [["nin", *sh] for sh in BQ.NIN_SHAPES])
+    # Q1's rows (the port's kernel) may not raise; a library row's error is
+    # reported, as the JAX app reports it
+    missing, errors, q1_errors = [], {}, []
+    for ln in lines:
+        kind = ln["shape"][0] if isinstance(ln["shape"][0], str) else "conv"
+        for r in rows[kind]:
+            if f"{r}_error" in ln:
+                errors[f"{ln['shape']} {r}"] = ln[f"{r}_error"]
+                if kind == "conv" and r != "bf16":
+                    q1_errors.append(f"{ln['shape']} {r}")
+            elif not ln.get(f"{r}_ms", 0) > 0:
+                missing.append(f"{ln['shape']} {r}")
+        print("  " + json.dumps(ln), flush=True)
+    reps, runs = int(QUANT_OPS_ARGS[1]), int(QUANT_OPS_ARGS[3])
+    want_q1 = len(BQ.SHAPES) * 4 * (1 + reps * runs)
+    if (rc != 0 or [ln["shape"] for ln in lines] != want_shapes or missing
+            or q1_errors or launches["conv3x3_int8"] != want_q1):
+        raise AssertionError(f"bench_quant_ops: rc {rc}, shapes "
+                             f"{[ln['shape'] for ln in lines]}, missing "
+                             f"{missing}, errors {errors}, Q1 launches "
+                             f"{launches} (want {want_q1})")
+    # the rows' outputs against their plain versions on the CPU, at the
+    # last 3x3 shape and the middle NIN shape with 8 images
+    cpu = torch.device("cpu")
+    errs = {}
+    for kind, shape in (("conv", (8,) + BQ.SHAPES[-1][1:]),
+                        ("nin", (8,) + BQ.NIN_SHAPES[1][1:])):
+        make = BQ.conv_rows if kind == "conv" else BQ.nin_rows
+        ins = BQ.inputs(shape, torch.device("cuda"), nin=kind == "nin")
+        card = {k: f().float().cpu() for k, f in make(*ins).items()}
+        plain = {k: f().float() for k, f in
+                 make(*(t.to(cpu) for t in ins)).items()}
+        for k, want in plain.items():
+            d = (card[k] - want).abs()
+            # one bf16 rounding of the output (the int8 rows: the same
+            # int32 sums, the dequant's roundings); bf16 sums in another
+            # order for the bf16 row
+            lim = (2.0 ** -8 * want.abs() if k != "bf16" else
+                   2.0 ** -7 * float(want.abs().max()))
+            errs[f"{kind} {k}"] = float(d.max())
+            if not bool(torch.isfinite(card[k]).all()) or bool(
+                    (d > lim + 1e-30).any()):
+                raise AssertionError(f"bench_quant_ops {kind} {shape} row "
+                                     f"{k}: max abs err {float(d.max())}")
+    phase("quant_ops", t0, card=smi, args=list(QUANT_OPS_ARGS),
+          shapes=len(lines), library_errors=errors, launches=launches,
+          rows_vs_plain_max_abs_err=errs)
+    return launches, lines
+
+
 def form_counters():
     from naturaldiffusion_tpu_torch.ops import quant as Q
     return dict(bench_counters(), conv3x3_int8=Q.conv3x3_int8)
@@ -3017,11 +3687,19 @@ def bench_form(B, net, flops, conv, quant, mods, total, want_traced):
     import tempfile
     import torch
 
+    laps, tl = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal tl
+        laps[name] = time.perf_counter() - tl
+        tl = time.perf_counter()
     counters = form_counters()
     zero_counts(counters)
     b = B.Bench(micro=BATCH, total=total, steps=STEPS, device="cuda",
                 graph=True, conv=conv, quant=quant, mods=mods, net=net)
+    lap("build")
     b.dispatch(2, chunks=2)                         # warm
+    lap("warm")
     trace = want_traced is not None
     logdir = tempfile.mkdtemp(prefix="natdiff_form_") if trace else None
     buf = io.StringIO()
@@ -3031,8 +3709,10 @@ def bench_form(B, net, flops, conv, quant, mods, total, want_traced):
                             trace_chunks=BENCH_CHUNKS_TRACED,
                             dispatches=1 if total == BENCH_TOTAL
                             else BENCH_FORM_DISPATCHES)
+        lap("measure")
         traced = (whole_trace_launches(B, b, logdir, rec, want_traced)
                   if trace else None)
+        lap("trace_launches")
     finally:
         if logdir:
             shutil.rmtree(logdir, ignore_errors=True)
@@ -3047,9 +3727,11 @@ def bench_form(B, net, flops, conv, quant, mods, total, want_traced):
     eager = chunk(False)
     replay = chunk(True)
     err = rel_l2(replay, eager)
+    lap("graph_vs_eager")
     del b
     torch.cuda.empty_cache()
-    return rec, launches, traced, err, bool(torch.isfinite(replay).all())
+    return (rec, launches, traced, err, bool(torch.isfinite(replay).all()),
+            laps)
 
 
 def phase_bench_forms(flops, n_plain, n_gn, n_int8):
@@ -3081,13 +3763,13 @@ def phase_bench_forms(flops, n_plain, n_gn, n_int8):
         # the replays' device launches, as the wrappers counted the build
         want_traced = {k: BENCH_CHUNKS_TRACED * per_run[k] for k in (
             "fused_weighted_sum", "conv3x3", "conv3x3_gn", "conv3x3_int8")}
-        rec, launches, traced, err, finite = bench_form(
+        rec, launches, traced, err, finite, laps = bench_form(
             B, net, flops, conv, quant, mods, total, want_traced)
         got = {k: launches[k] for k in per_run}
         want = {k: 2 * v for k, v in per_run.items()}     # warm-up, capture
         name = f"{rec['form']}_conv{conv}" + ("_mods" if mods else "")
         out[name] = dict(record=rec, launches=launches,
-                         rel_l2_graph_vs_eager=err)
+                         rel_l2_graph_vs_eager=err, seconds_by_part=laps)
         print(f"  bench {name}: {rec['value']} img/s ({total} images a "
               f"dispatch), graph vs eager {err:.3e}, launches {launches}"
               + (f", traced {traced}" if traced else ""), flush=True)
@@ -3108,7 +3790,8 @@ def phase_bench_forms(flops, n_plain, n_gn, n_int8):
     torch.cuda.empty_cache()
     phase("bench_forms", t0, forms={k: dict(
         img_per_s=v["record"]["value"], busy=v["record"]["busy"],
-        rel_l2_graph_vs_eager=v["rel_l2_graph_vs_eager"])
+        rel_l2_graph_vs_eager=v["rel_l2_graph_vs_eager"],
+        seconds_by_part=v["seconds_by_part"])
         for k, v in out.items()}, tol=BENCH_GRAPH_TOL)
     return default_launches, default_traced, out
 
@@ -3889,11 +4572,41 @@ def par_train_steps(torch, A, model, smi):
                 card=smi), launches
 
 
+def ring_grad_check(torch, A, mesh):
+    """Ring attention's gradient on the card's 1-rank mesh (the ring is one
+    local block) at RING_SHAPE, f32, against autograd through the plain
+    attention, with sm_scale 1 % off as the control."""
+    from naturaldiffusion_tpu_torch.ops.ring_attention import ring_mha
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 85)
+    q, k, v, cot = (torch.randn(RING_SHAPE, generator=gen, device="cuda")
+                    for _ in range(4))
+    scale = 1.0 / math.sqrt(RING_SHAPE[-1])
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+        out = fn(*leaves)
+        return out, torch.autograd.grad((out * cot).sum(), leaves)
+    out, got = grads(lambda a, b, c: ring_mha(a, b, c, mesh, sm_scale=scale))
+    ref, want = grads(lambda a, b, c: A.mha_reference(a, b, c, scale))
+    _, ctl = grads(lambda a, b, c: ring_mha(a, b, c, mesh,
+                                            sm_scale=scale * 1.01))
+    res = dict(shape=list(RING_SHAPE), out_rel_l2=rel_l2(out, ref),
+               grad_rel_l2=rel_l2_all(got, want), tol=PAR_GRAD_TOL,
+               control_scale_1pct_off_rel_l2=rel_l2_all(ctl, want))
+    print(f"  ring attention gradient: {json.dumps(res)}", flush=True)
+    if not (res["out_rel_l2"] <= PAR_GRAD_TOL
+            and res["grad_rel_l2"] <= PAR_GRAD_TOL
+            < res["control_scale_1pct_off_rel_l2"]):
+        raise AssertionError(f"ring attention gradient: {res}")
+    return res
+
+
 def phase_parallel(smi, details):
     """The parallelism slice (see the constants): (1) the backward kernel's
     rows, (2) the DiT-XL/2 train step on the mesh (its launches are the
     phase's main path), its gradient checks, (3) ``dryrun_multichip(1)``
-    on the card.  Returns (kernel rows, launches by path)."""
+    on the card, (4) ring attention's gradient.  Returns (kernel rows,
+    launches by path)."""
     import torch
     from naturaldiffusion_tpu_torch.ops import attention as A
     from naturaldiffusion_tpu_torch.parallel import make_mesh, named
@@ -3934,6 +4647,10 @@ def phase_parallel(smi, details):
     with torch.enable_grad():
         dry = dryrun_multichip(1, device="cuda")
     parts["dryrun_multichip"] = time.perf_counter() - tp
+    tp = time.perf_counter()
+    with torch.enable_grad():
+        ring = ring_grad_check(torch, A, mesh)
+    parts["ring_gradient"] = time.perf_counter() - tp
     worst = {d: max(max(r["rel_l2_dq_dk_dv"]) for r in rows
                     if r["dtype"] == d) for d in ("torch.float32",
                                                   "torch.bfloat16")}
@@ -3944,7 +4661,7 @@ def phase_parallel(smi, details):
           backward_worst_rel_l2=worst, backward_timed=timed,
           dit_xl2_train=step, grad_check_k9=grad_k9,
           grad_check_k10=grad_k10, splash_launches=splash_launches,
-          dryrun=dry, seconds_by_part=parts)
+          dryrun=dry, ring_gradient=ring, seconds_by_part=parts)
     details["parallel"] = dict(backward_rows=rows, timed=timed)
     main = timed[str(list(BWD_TIMED[0]))]
     sd3 = timed[str(list(BWD_TIMED[1]))]
@@ -4581,9 +5298,23 @@ def backbones_ddpm_256(drive, timer):
     return res
 
 
-def backbones_refinenets(drive):
+def refinenet_inputs(torch):
+    """The NCSNv2 and NCSN models of ``backbones_refinenets`` on the CPU
+    with their inputs (one 32^2 image from SEED + 76, the label a third of
+    the scales): [((cfg, model), x, label)]."""
+    gen = torch.Generator().manual_seed(SEED + 76)
+    out = []
+    for name, seed in ((NCSNV2_CONFIG, SEED + 77), (NCSN_CONFIG, SEED + 78)):
+        cfg, model = zoo_model(name, seed)
+        x = torch.rand((1, 32, 32, 3), generator=gen)
+        lab = torch.tensor([cfg.model.num_scales // 3], dtype=torch.float32)
+        out.append(((cfg, model), x, lab))
+    return out
+
+
+def backbones_refinenets(drive, oracles):
     """(c) NCSNv2 and NCSN at 32^2, f32, the card against the CPU at one
-    image; NCSNv2_128 at 128^2 in bf16 against the card's f32 beside a
+    image (the CPU forwards in the oracle process); NCSNv2_128 at 128^2 in bf16 against the card's f32 beside a
     1 %-off input control; annealed Langevin over NCSN (``ve/ncsn/*``'s
     sampling) through ``get_pc_sampler``.  No kernel of the port is on
     these paths (their convs are library convs, as the JAX package's are
@@ -4592,17 +5323,14 @@ def backbones_refinenets(drive):
     from naturaldiffusion_tpu_torch.samplers.pc import get_pc_sampler
     from naturaldiffusion_tpu_torch.sde import VESDE, get_score_fn
     none = {k: 0 for k in bench_counters()}
-    gen = torch.Generator().manual_seed(SEED + 76)
     res = {}
-    for name, seed in ((NCSNV2_CONFIG, SEED + 77), (NCSN_CONFIG, SEED + 78)):
-        cfg, model = ncsn = zoo_model(name, seed)   # NCSN last: ALD's
-        x = torch.rand((1, 32, 32, 3), generator=gen)
-        lab = torch.tensor([cfg.model.num_scales // 3], dtype=torch.float32)
+    wants = oracles.get("refinenets")[0]       # the CPU forwards
+    for name, ((cfg, model), x, lab), want in zip(
+            (NCSNV2_CONFIG, NCSN_CONFIG), refinenet_inputs(torch), wants):
+        ncsn = cfg, model                         # NCSN last: ALD's
         card = copy.deepcopy(model).to("cuda")
         with drive(f"{name} forward", lambda: none), torch.no_grad():
             got = card(x.cuda(), lab.cuda())
-        with torch.no_grad():
-            want = model(x, lab)
         err = rel_l2(got, want)
         res[name] = dict(family=cfg.model_family, rel_l2=err,
                          params=sum(p.numel() for p in model.parameters()))
@@ -4613,6 +5341,9 @@ def backbones_refinenets(drive):
     cfg, model = zoo_model(NCSNV2_128_CONFIG, SEED + 79)
     net32 = model.to("cuda")
     net16 = copy.deepcopy(net32).to(torch.bfloat16)
+    gen = torch.Generator().manual_seed(SEED + 76)
+    for _ in range(2):                   # past the two 32^2 images above
+        torch.rand((1, 32, 32, 3), generator=gen)
     x = torch.rand((1, 128, 128, 3), generator=gen).cuda()
     lab = torch.full((1,), 500.0, device="cuda")
     with torch.no_grad():
@@ -4735,7 +5466,8 @@ def phase_backbones(smi, details, oracles):
     parts, res = {}, {}
     for part, fn in (("ddpm", lambda: backbones_ddpm(drive, smi, oracles)),
                      ("ddpm_256", lambda: backbones_ddpm_256(drive, timer)),
-                     ("refinenets", lambda: backbones_refinenets(drive)),
+                     ("refinenets",
+                      lambda: backbones_refinenets(drive, oracles)),
                      ("ncsnpp_1024", lambda: backbones_ncsnpp_1024(
                          drive, timer))):
         tp = time.perf_counter()
@@ -5372,10 +6104,16 @@ def phase_tool_kernels(details, child):
 # process, and the in-process profile is kept beside it for the record
 _JOINT_PROFILE = f"""
 import json, math, sys, torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 from chip_smoke import kernel_summary
 from naturaldiffusion_tpu_torch.ops import attention as A
 torch.zeros(1, device="cuda")
+if sys.stdin.readline() != "warm\\n":  # the parent has gone
+    sys.exit(0)
+# a process's first profiler session sets the profiler up (seconds of host
+# time), paid here while the parent's phases run
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+    torch.ones(8, device="cuda").sum().item()
 if not sys.stdin.readline():          # the parent has gone
     sys.exit(0)
 gen = torch.Generator(device="cuda").manual_seed({SEED} + 32)
@@ -5384,13 +6122,21 @@ q, k, v = (torch.randn(({SD3_B}, {SD3_H}, {SD3_LAT + SD3_CTX}, {SD3_D}),
            for _ in range(3))
 A.mha_joint(q, k, v, split={SD3_LAT})
 torch.cuda.synchronize()
-with profile(activities=[ProfilerActivity.CPU,
-                         ProfilerActivity.CUDA]) as prof:
-    A.mha_joint(q, k, v, split={SD3_LAT})
-    torch.cuda.synchronize()
-kern = sorted((e for e in prof.key_averages()
+# a second session can lose the device records at the start of its window:
+# the profiler's warm-up step takes them and is dropped, the active step
+# is the one call reported
+ready = []
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+             schedule=schedule(wait=0, warmup=1, active=1),
+             on_trace_ready=lambda p: ready.append(p.key_averages())) as prof:
+    for _ in range(2):
+        A.mha_joint(q, k, v, split={SD3_LAT})
+        torch.cuda.synchronize()
+        prof.step()
+kern = sorted((e for e in ready[-1]
                if str(e.device_type).endswith("CUDA")
-               and e.self_device_time_total > 0),
+               and e.self_device_time_total > 0
+               and not e.key.startswith("ProfilerStep")),
               key=lambda e: -e.self_device_time_total)
 print(json.dumps(kernel_summary(kern)))
 """
@@ -5409,10 +6155,12 @@ def kernel_summary(kern):
 
 
 def start_joint_profile():
-    """The child process of :func:`profile_joint_in_child`, started early:
-    it imports torch, the profiler and the attention module and sets up the
-    card, then waits for a line on its stdin, so its start-up (seconds of
-    host time) runs beside the other phases."""
+    """The child process of :func:`profile_joint_in_child`, started two
+    phases ahead: it imports torch, the profiler and the attention module
+    and sets up the card, then waits for a line on its stdin; told
+    ``warm`` (by :func:`warm_joint_profile`) it runs the profiler's first
+    session, a tiny one, and waits again, so its set-up (seconds of host
+    time) runs beside the other phases."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items() if k != "TEARDOWN_CUPTI"}
     env["PYTHONPATH"] = os.pathsep.join(
@@ -5421,6 +6169,11 @@ def start_joint_profile():
                             cwd=root, env=env, stdin=subprocess.PIPE,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
+
+
+def warm_joint_profile(child):
+    child.stdin.write("warm\n")
+    child.stdin.flush()
 
 
 def stop_process(proc):
@@ -5566,16 +6319,21 @@ def main(argv=None) -> int:
                     help="also write every per-shape number to this JSON file")
     args = ap.parse_args(argv)
 
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "naturaldiffusion_tpu_torch")):
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 2
     sys.path.insert(0, root)
+    # nvcc and the CPU oracles' child process start before torch's import
+    # (seconds of one core)
+    early = EarlyBuild()
+    oracles = Oracles()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        oracles.stop()
+        return 2
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     # inference everywhere but the train phase, which turns grad mode on
@@ -5591,17 +6349,17 @@ def main(argv=None) -> int:
     # the port bench's FLOPs and tool_trace's count, on the CPU, and the
     # profiler's first session (seconds of set-up), while the kernels build
     from naturaldiffusion_tpu_torch.utils.flops import flops_via_cpu_subprocess
+    # (at a lower CPU priority than the build and this process's phases;
+    # each count is read where it is needed)
     pool = concurrent.futures.ThreadPoolExecutor(4)
     counting = pool.submit(flops_via_cpu_subprocess,
-                           "naturaldiffusion_tpu_torch.apps.bench", [])
+                           "naturaldiffusion_tpu_torch.apps.bench", [], 10)
     # DTensor's package (seconds of import on this host), which the meshes
     # of the train, eval and parallel phases load
     pool.submit(importlib.import_module, "torch.distributed.tensor")
     dit_count = pool.submit(flops_via_cpu_subprocess, TOOL_TRACE_COUNT[0],
-                            list(TOOL_TRACE_COUNT[1]))
-    building = pool.submit(phase_build)
-    # the CPU oracles, in a child process beside the build and the phases
-    oracles = Oracles()
+                            list(TOOL_TRACE_COUNT[1]), 10)
+    building = pool.submit(phase_build, early)
     # a profiler session leaves CUPTI's per-launch cost behind unless CUPTI
     # is torn down at its end (one A/B on one host: the phases after the
     # build ~7 % faster with it); set before the first session, and kept
@@ -5609,16 +6367,12 @@ def main(argv=None) -> int:
     os.environ["TEARDOWN_CUPTI"] = "1"
     warm_profiler(torch)
     building.result()
-    bench_flops = int(counting.result())
     # the train phase's FLOPs a step (bench_train on the CPU), counted while
     # the card runs the phases before it
     train_count = pool.submit(flops_via_cpu_subprocess,
                               "naturaldiffusion_tpu_torch.apps.bench_train",
-                              list(BENCH_TRAIN_ARGS[:2]))
+                              list(BENCH_TRAIN_ARGS[:2]), 10)
     pool.shutdown(wait=False)
-    # tool_kernels' profiling child, started now and stopped at exit
-    child = start_joint_profile()
-    atexit.register(stop_process, child)
     model = randomize_(NCSNpp(CIFAR10_DDPMPP_CONTINUOUS, device="cpu"),
                        SEED).eval()
     details = {}
@@ -5626,14 +6380,21 @@ def main(argv=None) -> int:
     kernels, n_plain, n_gn, n_k6 = phase_kernels(model_bf16, details)
     int8_entry, n_int8 = phase_int8_kernels(model_bf16, details)
     kernels.append(int8_entry)
+    quant_ops_launches, quant_ops_lines = phase_quant_ops(smi)
     routes = phase_routes(model_bf16, model, n_plain, n_gn, n_int8)
     del model_bf16
     phase_forward(model, oracles)
     launches, ips = phase_slice(model, n_plain, n_gn, n_k6, smi, oracles)
     sampler_launches = phase_samplers(model, n_plain, n_gn, n_k6, smi)
     eval_launches = phase_eval(model, n_plain, n_gn, n_k6, smi, oracles)
-    train_launches, train_bench_rows = phase_train(model, smi, train_count)
+    train_launches, train_bench_rows, train_dir = phase_train(model, smi,
+                                                              train_count)
     del model
+    oracles.submit("likelihood")        # in the oracle process, beside:
+    entry_launches = phase_entry_points(train_dir, oracles, n_plain, n_gn,
+                                        n_k6, smi)
+    lik_launches = phase_likelihood(oracles, smi)
+    bench_flops = int(counting.result())
     bench_launches, bench_traced, bench_lines = phase_bench(
         n_plain, n_gn, n_k6, bench_flops)
     int8_launches, int8_traced, form_lines = phase_bench_forms(
@@ -5658,6 +6419,13 @@ def main(argv=None) -> int:
     phase_ve_forward(ve32, oracles)
     ve_launches = phase_ve_slice(ve_cfg, ve32, ve_sigs, smi)
     del ve32
+    # tool_kernels' profiling child, started and warmed beside the
+    # backbones and sd3 phases (a child left idle for minutes after its
+    # first profiler session lost the device records of its second, as
+    # late sessions in this process do), stopped at exit
+    child = start_joint_profile()
+    atexit.register(stop_process, child)
+    warm_joint_profile(child)
     backbone_launches = phase_backbones(smi, details, oracles)
     sd3_launches, sd3_w8_launches, k9_sd3, k7_sd3 = phase_sd3(smi,
                                                                details)
@@ -5694,8 +6462,11 @@ def main(argv=None) -> int:
                "sd3_slice": sd3_launches,
                "sd3_slice_w8": sd3_w8_launches,
                "samplers": sampler_launches,
+               "likelihood": lik_launches,
                "eval": eval_launches,
                "train": train_launches,
+               "bench_quant_ops": quant_ops_launches,
+               **entry_launches,
                "attention_bench": attn_launches,
                "fused_act": k8_launches, **par_launches}
     # each kernel's count from the path that exercises it: K1-K3 the
@@ -5745,6 +6516,7 @@ def main(argv=None) -> int:
                            bench=bench_lines, bench_forms=form_lines,
                            routes=routes, bench_conv_model=conv_model,
                            bench_train=train_bench_rows,
+                           bench_quant_ops=quant_ops_lines,
                            attention_bench=attn_rows, bench_dit_toy=dit_toy,
                            bench_conv=conv_row, kernels=kernels,
                            details=details), fh, indent=1)

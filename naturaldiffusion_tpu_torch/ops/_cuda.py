@@ -1,104 +1,26 @@
-"""Build and load the port's CUDA kernels: ``nvcc`` into C-ABI shared
-libraries, bound with ``ctypes``.
+"""Load the port's CUDA kernels: C-ABI shared libraries built by ``nvcc``
+(``ops/_nvcc.py``), bound with ``ctypes``.
 
-Each ``csrc/<name>.cu`` compiles, with one ``nvcc`` call of its own, into
-``_build/<hash>/lib<name>.so``, where ``<hash>`` covers the sources and the
-flags, so an edited source builds anew and an unchanged one is reused.  The
-sources include no PyTorch header: a build takes seconds, not the minutes
-that ``torch.utils.cpp_extension`` takes.  All missing libraries build
-concurrently at first use.  A missing ``nvcc`` or a failed build raises:
-there is no fallback to the plain versions for a CUDA tensor.
+The sources include no PyTorch header: a build takes seconds, not the
+minutes that ``torch.utils.cpp_extension`` takes.  All missing libraries
+build concurrently at first use.  A missing ``nvcc`` or a failed build
+raises: there is no fallback to the plain versions for a CUDA tensor.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-import time
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-BUILD_ROOT = _PKG / "_build"
-SOURCES = ("weighted_sum", "conv3x3", "attention", "attention_bwd",
-           "qmatmul", "group_norm", "fused_act", "conv3x3_int8")
-# -split-compile=0 runs each nvcc's optimisation passes on as many threads
-# as the host has cores: on the H100's 8-core host the longest sources
-# (conv3x3.cu, group_norm.cu) build in ~21 s instead of ~35 s, every
-# kernel with the same registers and no spill
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "-split-compile=0")
+from ._nvcc import (BUILD_ROOT, CSRC, NVCC_FLAGS, SOURCES,  # noqa: F401
+                    build, build_dir, library_path, nvcc_path)
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 _bound: dict[tuple[str, str], ctypes._CFuncPtr] = {}
-
-
-def nvcc_path() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.is_file():
-        return str(cand)
-    raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin): "
-                       "the CUDA kernels cannot be built")
-
-
-def build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.iterdir()):
-        if src.suffix in (".cu", ".cuh"):
-            h.update(src.name.encode())
-            h.update(src.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16]
-
-
-def library_path(name: str) -> Path:
-    return build_dir() / f"lib{name}.so"
-
-
-def build(names=SOURCES) -> dict[str, float]:
-    """Compile every library of ``names`` not built yet, all at once.
-
-    Returns the seconds each compile took (0.0 for one already built).  The
-    compiler's output, ``ptxas`` register and shared-memory lines included,
-    lands in ``_build/<hash>/<name>.log``."""
-    out = build_dir()
-    out.mkdir(parents=True, exist_ok=True)
-    todo = [n for n in names if not library_path(n).exists()]
-    secs = {n: 0.0 for n in names}
-    if not todo:
-        return secs
-    nvcc = nvcc_path()
-    procs = {}
-    t0 = time.perf_counter()
-    for n in todo:
-        tmp = out / f"lib{n}.so.{os.getpid()}.tmp"
-        log = open(out / f"{n}.log", "w")
-        procs[n] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
-            stdout=log, stderr=subprocess.STDOUT), tmp, log)
-    failed = []
-    for n, (proc, tmp, log) in procs.items():
-        rc = proc.wait()
-        log.close()
-        secs[n] = time.perf_counter() - t0
-        if rc != 0:
-            failed.append(f"{n} (exit {rc}):\n{(out / f'{n}.log').read_text()}")
-        else:
-            os.replace(tmp, library_path(n))
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return secs
 
 
 def load(name: str) -> ctypes.CDLL:

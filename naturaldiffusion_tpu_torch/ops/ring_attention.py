@@ -11,8 +11,12 @@ type, then float32).  Peak memory is O(T / n) a rank.  JAX's ring has no
 Pallas kernel, and neither has this one: the block products are
 ``torch.matmul``.
 
-Forward only: the point-to-point transfers carry no gradient (JAX's
-``ppermute`` does), so under grad mode it raises.
+It is differentiable, as JAX's is through ``ppermute``: the forward keeps
+the f32 row logsumexp, and the backward runs the ring again.  Each rank
+recomputes its queries' probabilities against every K/V block from that
+logsumexp, adds to its own dq, and adds to the block's dk and dv, which
+travel round the ring with their block (``n`` rotations) and so come back
+to the rank that holds it.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import math
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..parallel.mesh import NamedSharding, axis_index, axis_size
 
@@ -37,39 +41,99 @@ def _local_block(q, k, v, sm_scale):
     return m, l, o.to(torch.float32)
 
 
-def _rotate(k, v, group, nxt: int, prv: int):
-    """Send ``k``, ``v`` to ``nxt`` and receive the block of ``prv`` (global
-    ranks), as one batch of point-to-point transfers."""
-    k2, v2 = torch.empty_like(k), torch.empty_like(v)
-    ops = [dist.P2POp(dist.isend, k, nxt, group),
-           dist.P2POp(dist.irecv, k2, prv, group),
-           dist.P2POp(dist.isend, v, nxt, group),
-           dist.P2POp(dist.irecv, v2, prv, group)]
+def _rotate(tensors, ring):
+    """Send each of ``tensors`` to the next rank of the ring and receive
+    the previous rank's, as one batch of point-to-point transfers."""
+    group, nxt, prv = ring
+    got = [torch.empty_like(t) for t in tensors]
+    ops = []
+    for t, g in zip(tensors, got):
+        ops += [dist.P2POp(dist.isend, t, nxt, group),
+                dist.P2POp(dist.irecv, g, prv, group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return k2, v2
+    return got
 
 
-def ring_local(q, k, v, mesh, axis: str, sm_scale: float):
-    """The ring on this rank's local ``[B, H, T/n, D]`` blocks; returns
-    this rank's output block."""
+def _ring_of(mesh, axis: str):
+    """(the axis's group, the next and the previous rank as global
+    ranks)."""
     n = axis_size(mesh, axis)
-    m, l, o = _local_block(q, k, v, sm_scale)
-    if n > 1:
-        group = mesh.get_group(axis)
-        r = axis_index(mesh, axis)
-        nxt = dist.get_global_rank(group, (r + 1) % n)
-        prv = dist.get_global_rank(group, (r - 1) % n)
-        k, v = k.contiguous(), v.contiguous()
+    group = mesh.get_group(axis)
+    r = axis_index(mesh, axis)
+    return (group, dist.get_global_rank(group, (r + 1) % n),
+            dist.get_global_rank(group, (r - 1) % n))
+
+
+class _RingFn(torch.autograd.Function):
+    """The ring on this rank's local blocks (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mesh, axis, sm_scale):
+        n = axis_size(mesh, axis)
+        ring = _ring_of(mesh, axis) if n > 1 else None
+        m, l, o = _local_block(q, k, v, sm_scale)
+        kk, vv = k.contiguous(), v.contiguous()
         for _ in range(n - 1):
-            k, v = _rotate(k, v, group, nxt, prv)
-            m2, l2, o2 = _local_block(q, k, v, sm_scale)
+            kk, vv = _rotate([kk, vv], ring)
+            m2, l2, o2 = _local_block(q, kk, vv, sm_scale)
             m_new = torch.maximum(m, m2)
             a, b = torch.exp(m - m_new), torch.exp(m2 - m_new)
             l = l * a + l2 * b
             o = o * a[..., None] + o2 * b[..., None]
             m = m_new
-    return (o / l[..., None]).to(q.dtype)
+        out = (o / l[..., None]).to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, m + torch.log(l))
+        ctx.ring, ctx.n, ctx.sm_scale = ring, n, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        ring, n, scale = ctx.ring, ctx.n, ctx.sm_scale
+        do = dout.to(v.dtype)
+        delta = (dout.to(torch.float32) * out.to(torch.float32)).sum(-1)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        kk, vv = k.contiguous(), v.contiguous()
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for step in range(n):
+            s = torch.matmul(q, kk.transpose(-1, -2)).to(torch.float32)
+            p = torch.exp(s * scale - lse[..., None])
+            dv += torch.matmul(p.to(v.dtype).transpose(-1, -2), do).to(
+                torch.float32)
+            dp = torch.matmul(do, vv.transpose(-1, -2)).to(torch.float32)
+            ds = (p * (dp - delta[..., None])).to(q.dtype)
+            dq += torch.matmul(ds, kk).to(torch.float32) * scale
+            dk += torch.matmul(ds.transpose(-1, -2), q).to(
+                torch.float32) * scale
+            if n > 1:
+                # the block's dk and dv travel with it; after the n-th
+                # rotation they are home and the block is no longer needed
+                if step < n - 1:
+                    kk, vv, dk, dv = _rotate([kk, vv, dk, dv], ring)
+                else:
+                    dk, dv = _rotate([dk, dv], ring)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None)
+
+
+def ring_local(q, k, v, mesh, axis: str, sm_scale: float):
+    """The ring on this rank's local ``[B, H, T/n, D]`` blocks; returns
+    this rank's output block.  Differentiable in q, k and v."""
+    return _RingFn.apply(q, k, v, mesh, axis, sm_scale)
+
+
+def _sharded(x, spec: NamedSharding):
+    """``x`` as a DTensor under ``spec``: a DTensor redistributed, a plain
+    tensor (the same global value on every rank) taken as replicated and
+    then split, so its gradient comes back gathered, the whole gradient
+    on every rank."""
+    if isinstance(x, DTensor):
+        return spec.constrain(x)
+    rep = DTensor.from_local(x, spec.mesh, [Replicate()] * spec.mesh.ndim,
+                             run_check=False)
+    return rep.redistribute(spec.mesh, spec.placements)
 
 
 def ring_mha(q, k, v, mesh, *, axis: str = "model",
@@ -78,11 +142,8 @@ def ring_mha(q, k, v, mesh, *, axis: str = "model",
     over ``axis``.  DTensors are redistributed to (T over ``axis``, the
     rest replicated) and the output is that DTensor; plain tensors (the
     same global value on every rank) are sharded here and the output
-    gathered back to a plain tensor."""
-    if torch.is_grad_enabled() and any(a.requires_grad for a in (q, k, v)):
-        raise NotImplementedError(
-            "ring attention has no gradient in the port (its transfers "
-            "are point-to-point sends); run it under torch.no_grad()")
+    gathered back to a plain tensor.  Gradients return to each input in
+    its own placements (a plain tensor's whole, on every rank)."""
     d = q.shape[-1]
     sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     n = axis_size(mesh, axis)
@@ -91,7 +152,7 @@ def ring_mha(q, k, v, mesh, *, axis: str = "model",
                          f"of the {axis!r} axis's {n} ranks")
     spec = NamedSharding(mesh, (None, None, axis, None))
     dt = isinstance(q, DTensor)
-    q, k, v = (spec.constrain(a) for a in (q, k, v))
+    q, k, v = (_sharded(a, spec) for a in (q, k, v))
     out = ring_local(q.to_local(), k.to_local(), v.to_local(), mesh, axis,
                      sm_scale)
     out = DTensor.from_local(out, mesh, spec.placements, run_check=False)

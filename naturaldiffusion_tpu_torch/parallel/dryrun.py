@@ -14,11 +14,14 @@ replicated run, in JAX's order:
 6. the data-parallel int8 conv path close to float;
 7. the ring-attention DiT forward against the replicated forward.
 
-``dryrun_multichip(n, device="cpu")`` spawns ``n`` gloo ranks on the host
-(:func:`spawn_gloo`); with ``device="cuda"`` it runs in this process on a
-1-rank NCCL mesh (NCCL takes one rank a card), where every collective is a
-no-op and the checks exercise the wiring and the kernels.
+``dryrun_multichip()`` runs on the card, as every entry point does, in
+this process on a 1-rank NCCL mesh (NCCL takes one rank a card), where
+every collective is a no-op and the checks exercise the wiring and the
+kernels; without a card it raises.  ``dryrun_multichip(n, device="cpu")``
+spawns ``n`` gloo ranks on the host (:func:`spawn_gloo`) for the
+multi-rank arithmetic.
 
+    python -m naturaldiffusion_tpu_torch.parallel.dryrun
     python -m naturaldiffusion_tpu_torch.parallel.dryrun --n 4 --device cpu
 """
 
@@ -345,10 +348,11 @@ def _spawned(rank, n, workdir, device):
         np.save(os.path.join(workdir, "result.npy"), res, allow_pickle=True)
 
 
-def dryrun_multichip(n: int, device="cpu") -> dict:
+def dryrun_multichip(n: int = 1, device="cuda") -> dict:
     """The dry run on ``n`` ranks (see the module docstring); returns rank
-    0's errors.  ``device="cpu"``: ``n`` spawned gloo ranks; ``"cuda"``:
-    this process, 1 rank (``n`` must be 1)."""
+    0's errors.  ``device="cuda"`` (the default): this process, 1 rank
+    (``n`` must be 1), raising without a card; ``"cpu"``: ``n`` spawned
+    gloo ranks."""
     dev = resolve_device(device)
     if dev.type != "cpu":
         if n != 1:
@@ -364,8 +368,9 @@ def dryrun_multichip(n: int, device="cpu") -> dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--n", type=int, default=4)
-    p.add_argument("--device", default="cpu")
+    p.add_argument("--n", type=int, default=1,
+                   help="ranks: 1 on the card; more with --device cpu")
+    p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     res = dryrun_multichip(args.n, args.device)
     print(f"dryrun_multichip ok on {args.n} rank(s): {res}", flush=True)

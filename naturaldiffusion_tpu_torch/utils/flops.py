@@ -43,9 +43,11 @@ def flops_counted(fn, *args, with_grad: bool = False, **kwargs) -> int:
     return counter.get_total_flops()
 
 
-def flops_via_cpu_subprocess(module: str, argv: list[str]) -> float:
+def flops_via_cpu_subprocess(module: str, argv: list[str],
+                             nice: int = 0) -> float:
     """Run ``python -m <module> --flops-only <argv>`` in a fresh process on
-    the CPU and parse the one number it prints last.
+    the CPU and parse the one number it prints last; ``nice`` lowers the
+    process's CPU priority (``nice -n``).
 
     ``NATDIFF_QUANT`` is stripped from the child's environment, as in the
     JAX package: the count is of the same math either way, and the
@@ -54,7 +56,8 @@ def flops_via_cpu_subprocess(module: str, argv: list[str]) -> float:
     root = str(Path(__file__).resolve().parents[2])
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (root, env.get("PYTHONPATH")) if p)
+    pre = ["nice", "-n", str(nice)] if nice else []
     out = subprocess.run(
-        [sys.executable, "-m", module, "--flops-only", *argv],
+        [*pre, sys.executable, "-m", module, "--flops-only", *argv],
         capture_output=True, text=True, check=True, env=env)
     return float(out.stdout.strip().splitlines()[-1])

@@ -215,6 +215,19 @@ assert dist.get_world_size() == 1 and callable(dryrun.dryrun_multichip)
 assert torch.isfinite(ring_mha(q, q, q, mesh)).all()
 assert set(parallel.__all__) >= {{"make_mesh", "fsdp_sharding",
                                   "constrain_tokens", "fold_in_shard"}}
+qg = q.clone().requires_grad_()
+ring_mha(qg, qg, qg, mesh).sum().backward()
+assert torch.isfinite(qg.grad).all()
+from naturaldiffusion_tpu_torch.apps import bench_quant_ops, repro_all
+from naturaldiffusion_tpu_torch.viz import visualize
+with tempfile.TemporaryDirectory() as d:
+    page = visualize.generate_coeff_matrix_html(d + "/v.html", algs=["ddim"],
+                                                step_counts=[2])
+    assert open(page).read().startswith("<!DOCTYPE html>")
+rows = bench_quant_ops.conv_rows(*bench_quant_ops.inputs(
+    (1, 2, 2, 128, 128), torch.device("cpu")))
+assert all(torch.isfinite(f().float()).all() for f in rows.values())
+assert [n for n, _ in repro_all._steps("o", True, False)][-1] == "sweep_cell"
 bad = sorted(k for k in sys.modules
              if k in ("jax", "naturaldiffusion_tpu", "regex", "pandas",
                       "optax", "orbax")
@@ -239,7 +252,7 @@ def test_no_source_imports_jax_or_the_jax_package():
                      r"|optax|orbax)(\.|\s|$)", re.M)
     files = list((ROOT / "naturaldiffusion_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "int8_ablation.py",
-              ROOT / "attention_bwd_ablation.py"]
+              ROOT / "attention_bwd_ablation.py", ROOT / "likelihood_scan.py"]
     assert len(files) > 10
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders
@@ -312,6 +325,21 @@ def test_parallel_entry_points_refuse_a_missing_card(monkeypatch):
         make_mesh()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dryrun_multichip(1, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip()
+
+
+def test_tooling_rest_refuses_a_missing_card(monkeypatch):
+    """The W8A8 micro-bench defaults to the card (the visualizer and the
+    reproduction driver's CPU steps have no card path)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from naturaldiffusion_tpu_torch.apps import bench_quant_ops
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_quant_ops.main(["--gemm-only"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_quant_ops.bench_shape((1, 4, 4, 128, 128))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_quant_ops.bench_nin((1, 4, 4, 128, 128))
 
 
 def test_dit_entry_points_refuse_a_missing_card(monkeypatch):

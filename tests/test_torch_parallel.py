@@ -6,7 +6,11 @@ of 4 gloo ranks (``tests/torch_parallel_ranks.py``, which imports no JAX)
 whose results are held here against the replicated runs and JAX's:
 
 * ring attention equals full attention at (T 48, 4 ranks) and (T 64, 2),
-  its output T-sharded; the ring DiT equals the replicated one;
+  its output T-sharded; its gradients (dq, dk, dv, for plain and for
+  T-sharded inputs, each returned in its input's placements) equal
+  autograd through the plain attention and ``jax.grad`` of JAX's ring on
+  a CPU mesh of as many devices; the ring DiT equals the replicated one,
+  and so do its train steps;
 * the MMDiT TP + SP forward (data 2 x model 2) equals JAX's replicated
   forward on the same weights;
 * the DiT TP + SP train step equals the replicated step (the losses, and
@@ -32,6 +36,7 @@ from naturaldiffusion_tpu.parallel import make_mesh as jax_make_mesh
 from naturaldiffusion_tpu.parallel import mmdit_tp_sharding as jax_mmdit_tp
 from naturaldiffusion_tpu.parallel import dit_tp_sharding as jax_dit_tp
 from naturaldiffusion_tpu.models.dit import DiT as JDiT, DiTConfig as JDiTCfg
+from naturaldiffusion_tpu.ops.ring_attention import ring_mha as jax_ring_mha
 from naturaldiffusion_tpu_torch.models import mmdit as tm
 from naturaldiffusion_tpu_torch.models.dit import DiT, DiTConfig
 from naturaldiffusion_tpu_torch.parallel import (dit_tp_sharding,
@@ -184,6 +189,14 @@ def results(tmp_path_factory):
     with jax.enable_x64(False):
         out["jax_mmdit_forward"] = np.asarray(jmod.apply(
             {"params": params}, x, t, ctx, pooled))
+        for name, axes, t_len in ranks.RING_CASES:
+            n = int(np.prod(list(axes.values())))
+            mesh = jax_make_mesh(axes, jax.devices()[:n])
+            q, k, v, cot = (a.numpy() for a in ranks.ring_inputs(t_len))
+            _, vjp = jax.vjp(lambda a, b, c: jax_ring_mha(
+                a, b, c, mesh, sm_scale=0.25), q, k, v)
+            out[f"jax_ring_{name}_grads"] = [np.asarray(g)
+                                             for g in vjp(cot)]
     return out
 
 
@@ -194,8 +207,25 @@ def test_ring_equals_full_attention(results, case):
     assert results[f"ring_{case}_plain_err"] < PAR_TOL
 
 
+@pytest.mark.parametrize("case", ["t48_ring4", "t64_ring2"])
+def test_ring_gradient_equals_plain_attention_and_jax(results, case):
+    assert results[f"ring_{case}_grad_err"] < PAR_TOL
+    assert results[f"ring_{case}_dtensor_grad_placements"]
+    assert results[f"ring_{case}_dtensor_grad_err"] < PAR_TOL
+    for got, want in zip(results[f"ring_{case}_grads"],
+                         results[f"jax_ring_{case}_grads"]):
+        assert got.shape == want.shape and np.abs(want).max() > 0.1
+        assert np.abs(got - want).max() < PAR_TOL
+
+
 def test_ring_dit_equals_replicated(results):
     assert results["ring_dit_err"] < PAR_TOL
+
+
+def test_ring_dit_train_step_equals_replicated(results):
+    assert np.allclose(results["ring_train_loss"],
+                       results["ring_train_rep_loss"], rtol=0, atol=1e-6)
+    assert results["ring_train_state_err"] < 1e-5
 
 
 def test_mmdit_tp_sp_forward_equals_jax(results):

@@ -44,14 +44,31 @@ def _perturbed(module, scale, seed):
     return module
 
 
+RING_CASES = (("t48_ring4", {"model": 4}, 48),
+              ("t64_ring2", {"data": 2, "model": 2}, 64))
+
+
+def ring_inputs(t):
+    """q, k, v and the output's cotangent of a ring case."""
+    return tuple(_randn(2, 3, t, 16, seed=s) for s in (1, 2, 3, 4))
+
+
+def _grads(fn, ins, cot):
+    leaves = [a.detach().clone().requires_grad_() for a in ins]
+    out = fn(*leaves)
+    return out, torch.autograd.grad((out * cot).sum(), leaves)
+
+
 def ring_checks(out):
     """Ring attention against full attention: T 48 over a 4-rank ring and
-    T 64 over the 2-rank model axis of a (data 2, model 2) mesh."""
+    T 64 over the 2-rank model axis of a (data 2, model 2) mesh; its
+    gradients, for plain and for T-sharded DTensor inputs, against
+    autograd through the plain attention (the parent holds rank 0's
+    against ``jax.grad`` of JAX's ring)."""
     from naturaldiffusion_tpu_torch.ops.ring_attention import ring_mha
-    for name, axes, t in (("t48_ring4", {"model": 4}, 48),
-                          ("t64_ring2", {"data": 2, "model": 2}, 64)):
+    for name, axes, t in RING_CASES:
         mesh = make_mesh(axes, device="cpu")
-        q, k, v = (_randn(2, 3, t, 16, seed=s) for s in (1, 2, 3))
+        q, k, v, cot = ring_inputs(t)
         want = A.mha_reference(q, k, v, 0.25)
         spec = named(mesh, None, None, "model", None)
         got = ring_mha(*(spec.distribute(a) for a in (q, k, v)), mesh,
@@ -62,11 +79,30 @@ def ring_checks(out):
             and got.to_local().shape[2] == t // mesh.size(i))
         out[f"ring_{name}_err"] = float((got.full_tensor() - want).abs()
                                         .max())
-        plain = ring_mha(q, k, v, mesh, sm_scale=0.25)
+        _, want_g = _grads(lambda a, b, c: A.mha_reference(a, b, c, 0.25),
+                           (q, k, v), cot)
+        plain, got_g = _grads(lambda a, b, c: ring_mha(a, b, c, mesh,
+                                                       sm_scale=0.25),
+                              (q, k, v), cot)
         out[f"ring_{name}_plain_err"] = float((plain - want).abs().max())
+        out[f"ring_{name}_grads"] = [g.numpy() for g in got_g]
+        out[f"ring_{name}_grad_err"] = max(
+            float((g - w).abs().max()) for g, w in zip(got_g, want_g))
+        leaves = [spec.distribute(a).requires_grad_() for a in (q, k, v)]
+        dt_out = ring_mha(*leaves, mesh, sm_scale=0.25)
+        dt_g = torch.autograd.grad((dt_out.full_tensor() * cot).sum(),
+                                   leaves)
+        out[f"ring_{name}_dtensor_grad_placements"] = all(
+            isinstance(g, DTensor) and g.placements == a.placements
+            for g, a in zip(dt_g, leaves))
+        out[f"ring_{name}_dtensor_grad_err"] = max(
+            float((g.full_tensor() - w).abs().max())
+            for g, w in zip(dt_g, want_g))
 
 
-def ring_dit(out):
+def _ring_dit_pair():
+    """The replicated DiT (plain attention) and the ring DiT on its
+    weights over a (data 2, model 2) mesh."""
     from naturaldiffusion_tpu_torch.models.dit import DiT, DiTConfig
     mesh = make_mesh({"data": 2, "model": 2}, device="cpu")
     cfg = DiTConfig(**dict(DIT, patch_size=1, hidden_size=32))
@@ -74,11 +110,37 @@ def ring_dit(out):
                      0.05, 5)
     ring = DiT(cfg, device="cpu", seed=12, attn_backend="ring", mesh=mesh)
     ring.load_state_dict(ref.state_dict())
+    return ref, ring
+
+
+def ring_dit(out):
+    ref, ring = _ring_dit_pair()
     x = _randn(4, 8, 8, 3, seed=11)
     t, y = torch.linspace(0.0, 999.0, 4), torch.arange(4) % 10
     with torch.no_grad():
         out["ring_dit_err"] = float((ring(x, t, y) - ref(x, t, y)).abs()
                                     .max())
+
+
+def ring_dit_train(out):
+    """Two train steps of the ring DiT on replicated parameters and a
+    plain batch (the same on every rank) against the replicated DiT's."""
+    from naturaldiffusion_tpu_torch.sde import VPSDE
+    from naturaldiffusion_tpu_torch.train import make_train_step
+    batch = _randn(4, 8, 8, 3, seed=22)
+    runs = []
+    for m in _ring_dit_pair():
+        init, step = make_train_step(VPSDE(), _dit_apply(m), warmup=10)
+        st = init({k: v.detach().clone().requires_grad_()
+                   for k, v in m.named_parameters()})
+        losses = []
+        for s in (5, 6):
+            st, loss = step(st, torch.Generator().manual_seed(s), batch)
+            losses.append(float(loss))
+        runs.append((st, losses))
+    (rs, rl), (gs, gl) = runs
+    out["ring_train_loss"], out["ring_train_rep_loss"] = gl, rl
+    out["ring_train_state_err"] = _state_err(gs, rs)
 
 
 def mmdit_tp(out, workdir):
@@ -275,6 +337,7 @@ def run(rank, n, workdir):
     out = {}
     ring_checks(out)
     ring_dit(out)
+    ring_dit_train(out)
     mmdit_tp(out, workdir)
     train_steps(out)
     dp_sampling(out)
