@@ -3184,7 +3184,8 @@ def bench_eager_s(b, chunks, seed):
 
 def phase_bench(n_plain, n_gn, n_k6, flops):
     """The port bench on one ``Bench`` at its defaults: the launch counts
-    of its warm-up and capture, its BENCH_DISPATCHES timed graphed
+    of its warm-up and capture, its replays (one a micro-batch), its
+    BENCH_DISPATCHES timed graphed
     dispatches, one profiled
     dispatch of ``BENCH_CHUNKS_TRACED`` replays (its busy share and the
     device launches of each kernel in the trace), eager chunks timed as the
@@ -3217,6 +3218,7 @@ def phase_bench(n_plain, n_gn, n_k6, flops):
     zero_counts(counters)
     b = B.Bench(micro=BATCH, total=BENCH_TOTAL, steps=STEPS, device="cuda",
                 graph=True, conv="2", quant="")
+    replays0 = b.graphed.replays
     b.dispatch(2)                                   # warm dispatch
     logdir = tempfile.mkdtemp(prefix="natdiff_bench_")
     buf = io.StringIO()
@@ -3233,6 +3235,13 @@ def phase_bench(n_plain, n_gn, n_k6, flops):
     if launches != {k: 2 * v for k, v in per_chunk.items()}:
         raise AssertionError(f"bench launches {launches}, want twice "
                              f"{per_chunk}")
+    # one replay a micro-batch: the warm and timed dispatches' 16 each, and
+    # BENCH_CHUNKS_TRACED a trace
+    replays = b.graphed.replays - replays0
+    want_replays = ((1 + BENCH_DISPATCHES) * (BENCH_TOTAL // BATCH)
+                    + graphed["traced_dispatch"]["tries"] * BENCH_CHUNKS_TRACED)
+    if replays != want_replays:
+        raise AssertionError(f"bench: {replays} replays, want {want_replays}")
     if traced != want_traced:
         raise AssertionError(f"bench: the traced dispatch's device launches "
                              f"{traced} != {want_traced}")
@@ -3674,9 +3683,9 @@ def phase_routes(model_bf16, model_f32, n_plain, n_gn, n_int8):
 
 def bench_form(B, net, flops, conv, quant, mods, total, want_traced):
     """One bench form on ``net``: its build (eager warm-up and capture)
-    and its run counted, the JSON line of its timed dispatch (one of
-    ``total`` images if that is the full bench, else the median of
-    BENCH_FORM_DISPATCHES) with, unless
+    and its run counted, its replays held to one a micro-batch, the JSON
+    line of its timed dispatch (one of ``total`` images if that is the
+    full bench, else the median of BENCH_FORM_DISPATCHES) with, unless
     ``want_traced`` is None, a profiled dispatch of BENCH_CHUNKS_TRACED
     replays (the card's busy share) and its device launches
     (``whole_trace_launches`` against ``want_traced``), and one chunk
@@ -3698,6 +3707,7 @@ def bench_form(B, net, flops, conv, quant, mods, total, want_traced):
     b = B.Bench(micro=BATCH, total=total, steps=STEPS, device="cuda",
                 graph=True, conv=conv, quant=quant, mods=mods, net=net)
     lap("build")
+    replays0 = b.graphed.replays
     b.dispatch(2, chunks=2)                         # warm
     lap("warm")
     trace = want_traced is not None
@@ -3717,6 +3727,14 @@ def bench_form(B, net, flops, conv, quant, mods, total, want_traced):
         if logdir:
             shutil.rmtree(logdir, ignore_errors=True)
     launches = read_counts(counters)
+    # one replay a micro-batch: 2 warm, the timed dispatches', the traces'
+    replays = b.graphed.replays - replays0
+    want_replays = 2 + (1 if total == BENCH_TOTAL else BENCH_FORM_DISPATCHES
+                        ) * (total // BATCH) + (
+        rec["traced_dispatch"]["tries"] * BENCH_CHUNKS_TRACED if trace else 0)
+    if replays != want_replays:
+        raise AssertionError(f"bench {rec['form']}: {replays} replays, want "
+                             f"{want_replays}")
 
     def chunk(graph):
         g = torch.Generator(device="cuda").manual_seed(SEED + 42)

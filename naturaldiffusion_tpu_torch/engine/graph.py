@@ -17,8 +17,10 @@ as the card runs them.  :class:`GraphedNI` captures one run of
   which a capture does not allow.
 * Every kernel wrapper launches on ``torch.cuda.current_stream()``, which
   is the capture stream inside ``torch.cuda.graph``.
-* The kernels' launch counters are Python-side.  They count once at the
-  capture, never at a replay.
+* The kernels' launch counters are Python-side: they count the calls of
+  their wrapper, so once at the capture, which launches nothing on the
+  card, and never at a replay.  :attr:`GraphedNI.replays` counts the
+  replays, and a device trace counts the launches the card ran.
 * Whatever the model caches outside the graph is read from the cache's
   memory at each replay: the int8 weights of ``models.layers`` are built
   by the warm-up and rebuilt in place by the first eager call after a
@@ -33,6 +35,7 @@ from typing import Callable
 
 import torch
 
+from ..utils.profiling import span
 from .ni import NISchedule, natural_inference
 
 
@@ -46,7 +49,7 @@ class GraphedNI:
     fills the inputs, and :meth:`replay` returns the static output.
     ``capture_s`` is the capture's wall time.  ``pool_bytes`` is the size
     of the graph's private memory pool: the allocator's segments that
-    carry its pool id."""
+    carry its pool id.  ``replays`` counts the replays."""
 
     def __init__(self, denoise_fn: Callable, sched: NISchedule, shape,
                  **kwargs):
@@ -63,6 +66,7 @@ class GraphedNI:
         self.graph = None
         self.out = None
         self.capture_s = self.pool_bytes = None
+        self.replays = 0
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side), torch.no_grad():
@@ -102,5 +106,7 @@ class GraphedNI:
         next replay."""
         if self.graph is None:
             raise RuntimeError("GraphedNI.replay before capture()")
-        self.graph.replay()
+        with span("graph.replay"):
+            self.graph.replay()
+        self.replays += 1
         return self.out

@@ -22,6 +22,7 @@ import torch
 from ..coeffs.matrix import CoeffMatrix
 from ..device import resolve_device
 from ..ops.weighted_sum import fused_weighted_sum
+from ..utils.profiling import span
 from .predictions import to_x0
 
 
@@ -116,18 +117,19 @@ def natural_inference(
     bufx = torch.empty((n, m), dtype=acc, device=dev)
 
     for k in range(n):
-        t, alpha, sigma = sched.node[k]
-        z_img = z.reshape(shape)
-        if step_inputs is None:
-            pred = denoise_fn(z_img.to(model_dtype), t)
-        else:
-            pred = denoise_fn(z_img.to(model_dtype), t,
-                              _at_step(step_inputs, k))
-        x0 = to_x0(pred, z_img, alpha, sigma, prediction_type,
-                   accum_dtype=acc)
-        bufx[k] = x0.reshape(-1)       # in place: row k of the x0 buffer
-        z = fused_weighted_sum(wx[k], we[k], bufx, bufe, k + 1,
-                               min(eps_cols, k + 2))
+        with span("ni.step"):
+            t, alpha, sigma = sched.node[k]
+            z_img = z.reshape(shape)
+            if step_inputs is None:
+                pred = denoise_fn(z_img.to(model_dtype), t)
+            else:
+                pred = denoise_fn(z_img.to(model_dtype), t,
+                                  _at_step(step_inputs, k))
+            x0 = to_x0(pred, z_img, alpha, sigma, prediction_type,
+                       accum_dtype=acc)
+            bufx[k] = x0.reshape(-1)   # in place: row k of the x0 buffer
+            z = fused_weighted_sum(wx[k], we[k], bufx, bufe, k + 1,
+                                   min(eps_cols, k + 2))
     return z.reshape(shape)
 
 

@@ -38,6 +38,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops import attention as A
 from ..ops._autograd import is_dtensor
+from ..utils.profiling import span
 from .dit import (QUANT_MODES, Dense, PatchEmbed, QDense, _tp_axis,
                   batch_only, layer_norm, local_attention, sharded_forward,
                   modulate, timestep_embedding)
@@ -333,7 +334,7 @@ class MMDiT(nn.Module):
         given, the timestep/pooled MLPs, every block's adaLN product and the
         context embedder are skipped and ``t``, ``pooled`` and ``context``
         are ignored."""
-        with sharded_forward(x):
+        with span("mmdit.forward"), sharded_forward(x):
             return self._forward(x, t, context, pooled, mods)
 
     def _forward(self, x, t, context, pooled, mods):

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..utils.profiling import span
 from .dit import Dense
 from .ncsnv2 import Conv
 
@@ -264,7 +265,8 @@ class AutoencoderKL(nn.Module):
                                         device=mean.device, dtype=mean.dtype)
 
     def decode(self, z):
-        return self.decoder(self.post_quant_conv(z.to(self.dtype)))
+        with span("vae.decode"):
+            return self.decoder(self.post_quant_conv(z.to(self.dtype)))
 
     def forward(self, x, generator: torch.Generator | None = None):
         z = self.encode(x, generator)

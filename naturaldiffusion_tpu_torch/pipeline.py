@@ -28,6 +28,7 @@ import torch
 
 from .coeffs.sd3 import sd3_euler_weights, sd3_weight_matrix
 from .engine import NISchedule, natural_inference
+from .utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -82,10 +83,11 @@ class SD3Pipeline:
                 np.asarray(a) if not torch.is_tensor(a) else a,
                 dtype=torch.long, device=dev)
 
-        return sd3_encode_prompt(
-            self.clip_l, ids(ids_l), self.clip_g, ids(ids_g),
-            self.t5, ids(ids_t5),
-            joint_dim=self.mmdit.config.joint_attention_dim)
+        with span("sd3.encode_prompt"):
+            return sd3_encode_prompt(
+                self.clip_l, ids(ids_l), self.clip_g, ids(ids_g),
+                self.t5, ids(ids_t5),
+                joint_dim=self.mmdit.config.joint_attention_dim)
 
     # -- sampling -----------------------------------------------------------
 

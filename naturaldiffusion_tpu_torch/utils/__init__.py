@@ -1,3 +1,5 @@
-from .profiling import NFECounter, Timer, trace
+from .profiling import (NFECounter, Timer, clear_spans, set_spans, span,
+                        span_record, trace)
 
-__all__ = ["NFECounter", "Timer", "trace"]
+__all__ = ["NFECounter", "Timer", "clear_spans", "set_spans", "span",
+           "span_record", "trace"]
